@@ -1,6 +1,6 @@
-"""mitsuba_customization_tpu — a TPU-native differentiable path tracer.
+"""mitsuba_customization_tpu — a differentiable path tracer in JAX.
 
-A from-scratch JAX/XLA/Pallas implementation of the capabilities of
+A from-scratch JAX/XLA implementation of the capabilities of
 ``WenCao1101/mitsuba_customization`` (Mitsuba 0.6 / Mitsuba 3 forks carrying
 MERL and custom measured-BRDF plugins; see /root/repo/SURVEY.md):
 
@@ -21,7 +21,7 @@ Layer map (mirrors SURVEY.md §7.2):
   core/     — frames, warps, distributions, Rusinkiewicz transform, QMC, color
   models/   — BSDF models (merl, measured_custom, microfacet/GGX, diffuse, ...)
   render/   — scene, shapes, BVH, emitters, sensors, film, integrators, AD
-  ops/      — Pallas TPU kernels for the hot paths (MERL gather, BVH traverse)
+  ops/      — hand-written kernels for the hot paths (BVH traversal, CUDA)
   parallel/ — device-mesh sharding of rays/pixels, gradient all-reduce
   utils/    — image IO, logging, checkpointing
 """

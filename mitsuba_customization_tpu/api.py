@@ -1,6 +1,6 @@
 """Top-level user API: load_dict / render / traverse.
 
-TPU-native counterpart of mitsuba3's Python layer (SURVEY.md §2.5):
+Counterpart of mitsuba3's Python layer (SURVEY.md §2.5):
 mi.load_dict -> load_dict, mi.render -> render, mi.traverse -> traverse.
 Fleshed out as the render layers land (SURVEY.md §7.2 steps 4-9).
 """

@@ -1,6 +1,6 @@
 """Command-line renderer: `python -m mitsuba_customization_tpu.cli`.
 
-TPU-native counterpart of mitsuba3 src/mitsuba/mitsuba.cpp (SURVEY.md §2.5
+Counterpart of mitsuba3 src/mitsuba/mitsuba.cpp (SURVEY.md §2.5
 L6): load a scene (XML or a Python file/JSON dict), render, write the
 image. Mirrors the reference CLI surface:
 
@@ -43,7 +43,7 @@ def _load_scene(path, defines):
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="mitsuba_customization_tpu",
-        description="TPU-native differentiable renderer "
+        description="differentiable renderer "
         "(mitsuba_customization capability set)",
     )
     ap.add_argument("scene", help="scene file (.xml, .json, .py)")
@@ -67,8 +67,11 @@ def main(argv=None):
         k, v = d.split("=", 1)
         defines[k] = v
 
+    from mitsuba_customization_tpu.utils import compile_cache
     from mitsuba_customization_tpu.utils.io import write_npy, write_png
     from mitsuba_customization_tpu.utils.log import logger
+
+    compile_cache.enable()
 
     t0 = time.time()
     scene = _load_scene(args.scene, defines)

@@ -1,5 +1,5 @@
 """Core math layer: frames, warps, distributions, transforms, QMC, color.
 
-TPU-native analogue of mitsuba3 src/core (libcore) — SURVEY.md §2.3.
+Analogue of mitsuba3 src/core (libcore) — SURVEY.md §2.3.
 Everything here is pure jnp over batched arrays (vectors are (..., 3)).
 """

@@ -1,17 +1,17 @@
 """Tabulated sampling distributions (1-D and 2-D CDF inversion).
 
-TPU-native counterpart of mitsuba3 include/mitsuba/core/distr_1d.h
+Counterpart of mitsuba3 include/mitsuba/core/distr_1d.h
 (DiscreteDistribution / ContinuousDistribution) and distr_2d.h (Marginal2D)
 — SURVEY.md §2.3. These back emitter selection, mesh-area sampling, and the
 MERL luminance-weighted importance sampler (SURVEY.md §3.3).
 
-Design notes (TPU-first):
+Design notes:
 * Everything is jittable, including CDF *construction* — the inverse-rendering
   loop rebuilds the MERL sampling CDF after every table update
   (SURVEY.md §7.3 item 6), so builds must live inside the jitted step.
 * CDF inversion uses a broadcast compare-and-reduce rather than binary
-  search: for the table sizes here (<= 256 bins) a single fused
-  compare+sum on the VPU beats a divergent binary search.
+  search: for the table sizes here (<= 256 bins) one fused compare+sum
+  per lane, with no data-dependent control flow.
 * Distributions are NamedTuples of arrays (pytrees), with optional leading
   "slice" axes so a stack of conditional tables (e.g. one per incident-angle
   bin) is sampled with a per-lane slice index gather.
@@ -19,34 +19,12 @@ Design notes (TPU-first):
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 
 _TINY = 1e-20
-
-
-def _fetch_stacked(arr, idx_tuple):
-    """arr (*L, K) indexed per-lane over ALL leading axes -> (lanes, K).
-
-    The hot-path replacement for `arr[idx_tuple]`: per-lane row gathers on
-    TPU are latency-bound (~13 ms / 2M lanes from a (32,64,64) stack,
-    scripts/bench_sorted.py), while a one-hot MXU contraction of the same
-    fetch runs 2-6x faster up to ~4096 rows. Exact: the one-hot is 0/1 in
-    f32, so each output is a plain sum of selected entries.
-    """
-    from mitsuba_customization_tpu.ops import onehot
-
-    lead = arr.shape[:-1]
-    rows = math.prod(lead)
-    if rows > onehot.MAX_ONEHOT_WIDTH:
-        return arr[idx_tuple]
-    flat_idx = idx_tuple[0].astype(jnp.int32)
-    for ax, ix in zip(lead[1:], idx_tuple[1:]):
-        flat_idx = flat_idx * ax + ix.astype(jnp.int32)
-    return onehot.fetch_rows(arr.reshape(rows, arr.shape[-1]), flat_idx)
 
 
 def _searchsorted(cdf, u):
@@ -63,13 +41,11 @@ _BIG = 3e38
 
 
 def _invert_cdf(cdf, u):
-    """CDF inversion without per-lane gathers: (idx, lo, mass).
+    """CDF inversion: (idx, lo, mass).
 
     idx = smallest i with cdf[i] >= u; lo = cdf[idx-1] (0 at idx 0);
     mass = cdf[idx] - lo. All three come from masked reductions over the
-    (..., K) row — pure VPU work, no dynamic indexing (the measured-on-chip
-    design rule: per-lane gathers run ~1000x slower than compares/reduces
-    on TPU v5e, so every inversion is a compare+reduce).
+    (..., K) row, which the row's own reads already paid for.
     """
     below = cdf < u[..., None]
     idx = jnp.clip(
@@ -86,8 +62,7 @@ def _invert_cdf(cdf, u):
 def _select_at(rows, idx):
     """rows (..., K) at per-lane idx (...) -> (...) via iota-compare+sum.
 
-    Gather-free per-lane selection from an already-materialized row (the
-    row itself comes from a cheap contiguous row-gather).
+    Selection from a row each lane has already fetched.
     """
     k = rows.shape[-1]
     iota = jax.lax.broadcasted_iota(jnp.int32, rows.shape, rows.ndim - 1)
@@ -97,22 +72,9 @@ def _select_at(rows, idx):
 
 
 def _gather_last(arr, idx):
-    """arr (..., K) gathered at idx (...) -> (...).
-
-    Shared 1-D table: a native small-table gather (fast tier on TPU).
-    Per-lane rows: iota-compare+sum (_select_at) — no per-lane column
-    gather, which is the slow class on v5e.
-    """
+    """arr (..., K) gathered at idx (...) -> (...)."""
     if arr.ndim == 1:
-        from mitsuba_customization_tpu.ops import onehot
-
-        ic = jnp.clip(idx, 0, arr.shape[0] - 1)
-        if arr.shape[0] <= onehot.MAX_ONEHOT_WIDTH:
-            # ANY per-lane XLA gather costs ~7 ns/lane on v5e (~15 ms at
-            # 2M lanes, even from a 2-entry table — round-5 frame trace);
-            # the one-hot MXU fetch is ~20x cheaper for small tables.
-            return onehot.take_rows(arr, ic)
-        return arr[ic]
+        return arr[jnp.clip(idx, 0, arr.shape[0] - 1)]
     arr_b = jnp.broadcast_to(arr, idx.shape + arr.shape[-1:])
     return _select_at(arr_b, idx)
 
@@ -120,8 +82,8 @@ def _gather_last(arr, idx):
 def _gather_row(arr, idx):
     """arr (..., H, W) gathered at row idx (...) -> (..., W).
 
-    Shared 2-D table: contiguous row-gather (fast). Batched tables fall
-    back to the broadcast path (callers keep H*W small there).
+    Shared 2-D table: contiguous row-gather. Batched tables fall back to
+    the broadcast path (callers keep H*W small there).
     """
     if arr.ndim == 2:
         return arr[jnp.clip(idx, 0, arr.shape[0] - 1)]
@@ -160,18 +122,9 @@ class DiscreteDistribution(NamedTuple):
         return DiscreteDistribution(pmf=self.pmf[idx], cdf=self.cdf[idx])
 
     def _rows(self, slice_):
-        """cdf/pmf rows for a lane-indexed slice tuple.
-
-        Small stacks fetch rows via the one-hot MXU path (_fetch_stacked):
-        the native row gather costs ~22 ms per 2M lanes even from a (2, 2)
-        table (round-5 frame trace, emitter prim_dist)."""
+        """cdf/pmf rows, per lane when `slice_` indexes a stack."""
         if slice_ is None:
             return self.pmf, self.cdf
-        if math.prod(self.pmf.shape[:-1]) <= 4096:
-            return (
-                _fetch_stacked(self.pmf, slice_),
-                _fetch_stacked(self.cdf, slice_),
-            )
         return self.pmf[slice_], self.cdf[slice_]
 
     def sample(self, u, slice_=None):
@@ -193,12 +146,6 @@ class DiscreteDistribution(NamedTuple):
     def eval_pmf(self, idx, slice_=None):
         if slice_ is None:
             return _gather_last(self.pmf, idx)
-        if (
-            math.prod(self.pmf.shape[:-1]) <= 4096
-            and self.pmf.shape[-1] <= 4096
-        ):
-            # one-hot row fetch + iota-select: no per-lane scalar gather
-            return _select_at(_fetch_stacked(self.pmf, slice_), idx)
         return self.pmf[slice_ + (idx,)]
 
 
@@ -279,7 +226,7 @@ class Marginal2D(NamedTuple):
         64x64 grid. Hot paths must instead pass `slice_` (a tuple of
         per-lane index arrays into the stack axes) to sample/eval_pdf,
         which chain the gathers index-by-index and never build per-lane
-        tables (the TPU memory contract of the MERL sampler).
+        tables (the memory contract of the MERL sampler).
         """
         return Marginal2D(
             pdf=self.pdf[idx],
@@ -296,20 +243,17 @@ class Marginal2D(NamedTuple):
         h, w = self.pdf.shape[-2], self.pdf.shape[-1]
         u_row, u_col = sample2[..., 0], sample2[..., 1]
 
-        # Per-lane table rows via one-hot MXU row fetches (_fetch_stacked);
-        # the inversions are masked reductions (_invert_cdf) and the
-        # sample's pdf falls out of the CDF masses — zero per-lane gathers.
-        cdf_row = (
-            self.cdf_row if slice_ is None
-            else _fetch_stacked(self.cdf_row, slice_)
-        )
+        # Per-lane table rows are row gathers; the inversions are masked
+        # reductions (_invert_cdf) and the sample's pdf falls out of the
+        # CDF masses.
+        cdf_row = self.cdf_row if slice_ is None else self.cdf_row[slice_]
         row, row_lo, row_mass = _invert_cdf(cdf_row, u_row)
         dy = jnp.clip((u_row - row_lo) / jnp.maximum(row_mass, _TINY), 0.0, 1.0 - 1e-7)
 
         if slice_ is None:
             cond = _gather_row(self.cdf_cond, row)  # (..., W)
         else:
-            cond = _fetch_stacked(self.cdf_cond, slice_ + (row,))
+            cond = self.cdf_cond[slice_ + (row,)]
         col, col_lo, col_mass = _invert_cdf(cond, u_col)
         dx = jnp.clip((u_col - col_lo) / jnp.maximum(col_mass, _TINY), 0.0, 1.0 - 1e-7)
 
@@ -323,16 +267,13 @@ class Marginal2D(NamedTuple):
     def eval_pdf(self, pos, slice_=None):
         """Density at pos (..., 2) = (y, x) in [0,1)^2.
 
-        Computed from CDF differences at the cell (gather-free per lane):
+        Computed from CDF differences at the cell:
         pdf = (cdf_row[r] - cdf_row[r-1]) * (cond[r, c] - cond[r, c-1]) * HW.
         """
         h, w = self.pdf.shape[-2], self.pdf.shape[-1]
         row = jnp.clip((pos[..., 0] * h).astype(jnp.int32), 0, h - 1)
         col = jnp.clip((pos[..., 1] * w).astype(jnp.int32), 0, w - 1)
-        cdf_row = (
-            self.cdf_row if slice_ is None
-            else _fetch_stacked(self.cdf_row, slice_)
-        )
+        cdf_row = self.cdf_row if slice_ is None else self.cdf_row[slice_]
         cdf_row = jnp.broadcast_to(cdf_row, row.shape + cdf_row.shape[-1:])
         row_mass = _select_at(cdf_row, row) - _select_at(
             cdf_row, jnp.maximum(row - 1, 0)
@@ -340,7 +281,7 @@ class Marginal2D(NamedTuple):
         if slice_ is None:
             cond = _gather_row(self.cdf_cond, row)
         else:
-            cond = _fetch_stacked(self.cdf_cond, slice_ + (row,))
+            cond = self.cdf_cond[slice_ + (row,)]
         col_mass = _select_at(cond, col) - _select_at(
             cond, jnp.maximum(col - 1, 0)
         ) * (col > 0)

@@ -1,6 +1,6 @@
 """Shading frames: world <-> local transforms around a normal.
 
-TPU-native counterpart of mitsuba3 include/mitsuba/core/frame.h (Frame3f).
+Counterpart of mitsuba3 include/mitsuba/core/frame.h (Frame3f).
 A frame is stored as a (s, t, n) triple of (..., 3) arrays; batched.
 """
 

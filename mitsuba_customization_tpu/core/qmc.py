@@ -1,6 +1,6 @@
 """Low-discrepancy sequences: Owen-scrambled Sobol (0,2)-sequence, in pure jnp.
 
-TPU-native replacement for mitsuba3 src/samplers/ldsampler.cpp and the
+Replacement for mitsuba3 src/samplers/ldsampler.cpp and the
 radical-inverse machinery in include/mitsuba/core/qmc.h (SURVEY.md §2.4
 "Samplers"; BASELINE.json north_star: "Mitsuba warp -> JAX-native
 low-discrepancy"). Uses hash-based Owen scrambling (Laine-Karras style

@@ -93,9 +93,7 @@ def dirs_to_half_diff_fast(wi, wo):
         cos_th = h.z, sin_th = sqrt(1-h.z^2),
         cos_ph = h.x/sin_th, sin_ph = h.y/sin_th.
     Eight transcendental evaluations (2x dir_to_sph, 4x rot trig) collapse
-    to two arccos + one arctan2 — the TPU VPU lowers each transcendental
-    to a long polynomial chain, making this the difference between ~8.5 ms
-    and ~3 ms per 2M-lane wavefront (scripts/bench_gather.py findings).
+    to two arccos + one arctan2.
     phi_h is not returned (the MERL table is isotropic and never needs it).
     """
     h = normalize(wi + wo)

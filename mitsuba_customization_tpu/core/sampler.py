@@ -1,10 +1,10 @@
 """Per-lane stateless samplers (counter-based RNG + low-discrepancy).
 
-TPU-native counterpart of mitsuba3 src/render/sampler.cpp +
+Counterpart of mitsuba3 src/render/sampler.cpp +
 src/samplers/{independent,stratified,multijitter,ldsampler}.cpp
 (SURVEY.md §2.3 "Sampler framework", §2.4 "Samplers").
 
-Design (TPU-first, replay-exact): the reference seeds one PCG32 per lane and
+Design (replay-exact): the reference seeds one PCG32 per lane and
 draws a *sequence*; here every random number is a pure hash of
 (seed, lane_id, dimension_index) — no mutable RNG state crosses the bounce
 loop, so path-replay backprop (SURVEY.md §3.2) reproduces the primal

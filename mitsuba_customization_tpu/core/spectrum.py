@@ -1,6 +1,6 @@
 """Color handling: RGB spectra, luminance, sRGB transfer functions.
 
-TPU-native counterpart of mitsuba3 src/core/spectrum.cpp + src/render/srgb.cpp
+Counterpart of mitsuba3 src/core/spectrum.cpp + src/render/srgb.cpp
 (SURVEY.md §2.3). The build targets the *_rgb variants of the reference
 (scalar_rgb / cuda_ad_rgb), so Spectrum == linear-Rec709 RGB (..., 3).
 """

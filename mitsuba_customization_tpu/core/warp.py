@@ -1,6 +1,6 @@
 """Sampling warps: [0,1)^2 -> hemisphere/sphere/disk/triangle, with pdfs.
 
-TPU-native counterpart of mitsuba3 src/core/warp.cpp + include/mitsuba/core/
+Counterpart of mitsuba3 src/core/warp.cpp + include/mitsuba/core/
 warp.h (SURVEY.md §2.3). Same warp set used by the BSDF/emitter samplers.
 Each `square_to_*` has a matching `square_to_*_pdf` evaluated at the warped
 point, as in the reference, so chi^2 tests can gate them (SURVEY.md §4.1).

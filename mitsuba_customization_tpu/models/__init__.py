@@ -7,5 +7,5 @@ Each model is a pure-function module over a params pytree:
     sample(params, wi, u)  -> (wo, pdf, weight = f*cos/pdf)
 Directions live in the local shading frame (+z = surface normal).
 Dispatch over material types is static (a fixed kernel table evaluated
-under lane masks) — the TPU replacement for Dr.Jit vcalls (SURVEY.md §2.2).
+under lane masks) — the replacement for Dr.Jit vcalls (SURVEY.md §2.2).
 """

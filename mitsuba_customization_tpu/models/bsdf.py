@@ -1,11 +1,11 @@
-"""Static BSDF dispatch table — the TPU replacement for Dr.Jit vcalls.
+"""Static BSDF dispatch table — the replacement for Dr.Jit vcalls.
 
 The reference dispatches BSDF::eval/sample/pdf through Dr.Jit vcalls over
-instance arrays (SURVEY.md §2.2 "vcalls"); BASELINE.json north_star pins the
-TPU design: "Dr.Jit vcall -> static Pallas kernel table". This module is
-that table: a fixed enum of BSDF kernels, per-lane material ids, and
-masked run-all dispatch (few kernel types => evaluating every present
-kernel under a lane mask beats lax.switch's serialization on TPU,
+instance arrays (SURVEY.md §2.2 "vcalls"); BASELINE.json north_star pins
+the design: "Dr.Jit vcall -> static kernel table". This module is that
+table: a fixed enum of BSDF kernels, per-lane material ids, and masked
+run-all dispatch (few kernel types => every present kernel runs under a
+lane mask in one fused program instead of lax.switch's serialization,
 SURVEY.md §7.1).
 
 Scene construction (render/scene.py) compiles material declarations into a
@@ -15,7 +15,7 @@ Scene construction (render/scene.py) compiles material declarations into a
   * parameter stacks per kernel present in the scene (a dict pytree — keys
     static under jit);
   * tabulated BRDFs share one stacked (n_mat, n_th, n_td, n_pd, 3) tensor
-    per resolution so lanes gather (slot, i, j, k) from HBM.
+    per resolution so lanes gather (slot, i, j, k) from device memory.
 """
 
 from __future__ import annotations
@@ -25,7 +25,6 @@ from typing import Any, Dict, NamedTuple
 import jax
 import jax.numpy as jnp
 
-from mitsuba_customization_tpu.ops.onehot import take_rows
 from mitsuba_customization_tpu.models import (
     conductor,
     dielectric,
@@ -155,7 +154,7 @@ class BSDFTable(NamedTuple):
         """Per-lane: does this material sample a delta lobe?
 
         Blends count as delta only if both children are delta."""
-        t = take_rows(self.mat_type, mat_id)
+        t = self.mat_type[mat_id]
 
         def kernel_delta(types):
             out = jnp.zeros(types.shape, dtype=bool)
@@ -173,7 +172,7 @@ class BSDFTable(NamedTuple):
 
     def resolve_children(self, mat_id):
         """(child_a, child_b, w, is_blend): identity for non-blends."""
-        t = take_rows(self.mat_type, mat_id)
+        t = self.mat_type[mat_id]
         is_b = t == BLEND
         a = jnp.where(is_b, self.blend_a[mat_id], mat_id)
         b = jnp.where(is_b, self.blend_b[mat_id], mat_id)
@@ -182,20 +181,15 @@ class BSDFTable(NamedTuple):
 
 
 def _gather_params(stack, slot):
-    """Gather per-lane parameters from a stacked pytree (small params only).
-
-    One fused MXU one-hot fetch (ops/onehot.gather_tree) — per-lane
-    gathers are the slow op class on TPU even for tiny tables."""
-    from mitsuba_customization_tpu.ops.onehot import gather_tree
-
-    return gather_tree(stack, slot)
+    """Gather per-lane parameters from a stacked pytree (small params only)."""
+    return jax.tree_util.tree_map(lambda a: a[slot], stack)
 
 
 def _dispatch(table: BSDFTable, mat_id, fn_name, wi, *args, uv=None,
               **kwargs):
     """Masked run-all dispatch over the kernels present in the scene."""
-    t = take_rows(table.mat_type, mat_id)
-    slot = take_rows(table.mat_slot, mat_id)
+    t = table.mat_type[mat_id]
+    slot = table.mat_slot[mat_id]
     out = None
     for kid in table.present_kernels:
         if kid in (NULL, BLEND):
@@ -206,9 +200,9 @@ def _dispatch(table: BSDFTable, mat_id, fn_name, wi, *args, uv=None,
         if getattr(mod, "NEEDS_SLOT", kid == TABULATED):
             # Big stacked tensors (MERL tables, texture atlases): slot-aware
             # gather inside the kernel, never materialized per lane. The
-            # lane mask lets the kernel clamp masked-out lanes to one hot
-            # row so they don't generate random HBM traffic (run-all-mask
-            # dispatch otherwise pays the gather for every lane).
+            # lane mask lets the kernel clamp masked-out lanes to slot 0
+            # and zero their output (run-all-mask dispatch evaluates every
+            # lane).
             extra = dict(kwargs)
             if getattr(mod, "NEEDS_UV", False):
                 extra["uv"] = uv
@@ -326,16 +320,16 @@ def eval_pdf(table: BSDFTable, mat_id, wi, wo, uv=None):
 
 def bounce_shade(table: BSDFTable, mat_id, wi, wo_nee, sample2, sample1=None,
                  uv=None, need_attached=False, has_nee=True, active=None,
-                 coherent=False, nee_mask=None):
+                 nee_mask=None):
     """All BSDF work of one path-tracer bounce in one dispatch pass.
 
     Fuses {eval_pdf(wi, wo_nee), sample(wi, u), eval(wi, wo_sampled)} —
     the three per-bounce BSDF dispatches of the round-2 integrator — into
     one masked run-all pass so each kernel runs exactly once per bounce.
-    The tabulated kernel gets the big win (models/tabulated.bounce_shade:
-    one sampling-kernel pass + ONE combined 2N-lane sorted trilinear eval
-    instead of two eval passes and 4-6 one-hot CDF fetches); analytic
-    kernels compose the same three calls they always ran.
+    The tabulated kernel shares work across the three
+    (models/tabulated.bounce_shade: shared CDF row fetches + ONE combined
+    2N-lane trilinear eval); analytic kernels compose the same three calls
+    they always ran.
 
     Returns (f_nee, pdf_nee, wo, pdf_s, weight, is_delta, f_att) where
     f_att is the attached eval at the sampled wo (for the ad_mode detached
@@ -364,8 +358,8 @@ def bounce_shade(table: BSDFTable, mat_id, wi, wo_nee, sample2, sample1=None,
         )
         return f_nee, p_nee, wo, p_s, weight, is_delta, f_att
 
-    t = take_rows(table.mat_type, mat_id)
-    slot = take_rows(table.mat_slot, mat_id)
+    t = table.mat_type[mat_id]
+    slot = table.mat_slot[mat_id]
     shape = wi.shape[:-1]
     out = None
     for kid in table.present_kernels:
@@ -388,7 +382,7 @@ def bounce_shade(table: BSDFTable, mat_id, wi, wo_nee, sample2, sample1=None,
             f_nee, p_nee, wo, p_s, weight, is_delta = mod.bounce_shade(
                 table.stacks[kid], wi, wo_nee, sample2, sample1,
                 slot=slot_safe, mask=mask, mask_nee=m_nee,
-                need_attached=need_attached, coherent=coherent,
+                need_attached=need_attached,
             )
             # weight = f_attached / sg(pdf) exactly, so the attached eval
             # at wo is recovered without a second pass.

@@ -1,6 +1,6 @@
 """Fresnel reflectance: dielectric (with Snell refraction data) and conductor.
 
-TPU-native counterpart of mitsuba3 include/mitsuba/render/fresnel.h
+Counterpart of mitsuba3 include/mitsuba/render/fresnel.h
 (SURVEY.md §2.3 "Fresnel module"). Batched jnp; conductors take per-channel
 complex IOR (eta - i*k), matching the reference's conductor/roughconductor.
 """

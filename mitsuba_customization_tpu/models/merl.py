@@ -1,6 +1,6 @@
 """MERL binary BRDF reader + BSDF model — the reference's headline plugin.
 
-TPU-native counterpart of the MERL plugins the reference adds to both
+Counterpart of the MERL plugins the reference adds to both
 Mitsuba stacks (README.md:1 "Add Merl, customized_measurment brdf pluggin";
 SURVEY.md §2.1). File format (standard MERL reader semantics, required by
 BASELINE.json north_star):

@@ -1,7 +1,7 @@
 """Microfacet distributions: GGX and Beckmann — NDF, Smith shadowing,
 visible-normal sampling.
 
-TPU-native counterpart of mitsuba3 include/mitsuba/render/microfacet.h
+Counterpart of mitsuba3 include/mitsuba/render/microfacet.h
 (MicrofacetDistribution — SURVEY.md §2.3): `eval` (NDF D), `smith_g1`,
 visible-normal sampling per Heitz 2018 for GGX, and the matching `pdf`.
 Anisotropic (alpha_u, alpha_v) supported throughout. This is the analytic

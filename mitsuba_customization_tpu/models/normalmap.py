@@ -1,6 +1,6 @@
 """Normal/bump mapping: per-material shading-frame perturbation.
 
-TPU-native counterpart of mitsuba3 src/bsdfs/{normalmap,bumpmap}.cpp
+Counterpart of mitsuba3 src/bsdfs/{normalmap,bumpmap}.cpp
 (SURVEY.md §2.4). In the reference these are wrapper BSDFs that rotate the
 shading frame before delegating; here the perturbation applies once per
 interaction in the integrator (apply_normal_maps) using a per-material

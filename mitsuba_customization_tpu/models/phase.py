@@ -1,6 +1,6 @@
 """Phase-function kernels: isotropic, Henyey-Greenstein, Rayleigh.
 
-TPU-native counterpart of the reference's phase-function plugins
+Counterpart of the reference's phase-function plugins
 (mitsuba3 src/phase/{isotropic,hg,rayleigh}.cpp, SURVEY.md §2.4
 "Media / Phase / Volumes"; mitsuba 0.6 src/phase/). Like the BSDF layer
 (models/bsdf.py) there are no virtual calls: each phase function is a pure

@@ -1,6 +1,6 @@
 """Smooth plastic: dielectric coating (delta lobe) over a diffuse base.
 
-TPU-native counterpart of mitsuba3 src/bsdfs/plastic.cpp (SURVEY.md §2.4):
+Counterpart of mitsuba3 src/bsdfs/plastic.cpp (SURVEY.md §2.4):
 specular reflection with probability F(cos_i), otherwise diffuse scattering
 with the (1-F_i)(1-F_o) transmission factors and the internal-scattering
 compensation 1/(1 - rho * F_dr(1/eta)) of the reference model.

@@ -1,6 +1,6 @@
 """Principled BSDF (Disney 2012/2015) — opaque configuration.
 
-TPU-native counterpart of mitsuba3 src/bsdfs/principled.cpp (SURVEY.md
+Counterpart of mitsuba3 src/bsdfs/principled.cpp (SURVEY.md
 §2.4, round-2 verdict item 8). Implements the reflective lobe set:
 
   * Disney base diffuse with the retro-reflection Fd90 term and the

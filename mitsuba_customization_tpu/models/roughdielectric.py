@@ -1,6 +1,6 @@
 """Rough dielectric (ground glass): GGX/Beckmann microfacet transmission.
 
-TPU-native counterpart of mitsuba3 src/bsdfs/roughdielectric.cpp
+Counterpart of mitsuba3 src/bsdfs/roughdielectric.cpp
 (SURVEY.md §2.4), implementing Walter et al. 2007 with visible-normal
 sampling. Two-sided: lanes may arrive from either side (eta flips).
 Radiance-transport convention: transmitted throughput carries the 1/eta^2

@@ -1,6 +1,6 @@
 """Rough plastic: GGX-coated diffuse base (all-smooth lobes).
 
-TPU-native counterpart of mitsuba3 src/bsdfs/roughplastic.cpp
+Counterpart of mitsuba3 src/bsdfs/roughplastic.cpp
 (SURVEY.md §2.4): a microfacet dielectric coat over a diffuse substrate
 with the same internal-scattering compensation as plastic.cpp. Sampling
 mixes visible-normal coat sampling with cosine diffuse sampling; the pdf

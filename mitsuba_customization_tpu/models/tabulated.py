@@ -49,83 +49,25 @@ NEEDS_MASK = True
 COSINE_MIX = 0.1
 
 # Resolution of the tabulated sampler: number of incident-angle slices and
-# the (theta_h, phi_h) grid per slice. Sized so the conditional-CDF stack
-# (N_THETA_I * SAMPLE_RES_H rows) stays under ops/onehot.MAX_ONEHOT_WIDTH:
-# every per-lane CDF row fetch then rides the MXU (core/distr._fetch_stacked).
+# the (theta_h, phi_h) grid per slice.
 N_THETA_I = 32
 SAMPLE_RES_H = 32
 SAMPLE_RES_PHI = 64
-
-# Forced eval path for tests: None = auto (sorted Pallas kernel on TPU,
-# packed row-gather elsewhere), or "packed" / "sorted".
-EVAL_PATH = None
-
-# Forced sampling-CDF path for the fused bounce_shade: None = auto (sorted
-# Pallas kernel on TPU, one-hot MXU fetches elsewhere), or "onehot" /
-# "sorted".
-SAMPLE_PATH = None
-
-# Route the Pallas kernels through interpret mode (CPU testing of the
-# production TPU path — tests/test_ops.py, tests/test_render.py).
-INTERPRET = False
-
-
-# Below this static lane count the sorted segment kernels lose to plain
-# per-lane gathers: their segment-walk iteration count is bounded below by
-# the number of DISTINCT table cells the wavefront touches, which shrinks
-# sublinearly as compaction thins the late bounces (measured on v5e,
-# PROFILE_paths_r05.json: 64k-lane eval 21.2 ms sorted vs 10.8 ms raw
-# gather; sampling 5.1 vs 3.5 ms one-hot; crossover ~256k lanes). Auto
-# mode therefore picks by the STATIC wavefront size; forced EVAL_PATH /
-# SAMPLE_PATH (tests, dryrun) bypass the switch.
-SORTED_MIN_LANES = 1 << 18
-
-
-def _eval_path(n=None):
-    if EVAL_PATH is not None:
-        return EVAL_PATH
-    if jax.default_backend() != "tpu":
-        return "packed"
-    if n is not None and n < SORTED_MIN_LANES:
-        return "raw"
-    return "sorted"
-
-
-def _sample_path(n=None):
-    if SAMPLE_PATH is not None:
-        return SAMPLE_PATH
-    if jax.default_backend() != "tpu":
-        return "onehot"
-    if n is not None and n < SORTED_MIN_LANES:
-        return "onehot"
-    return "sorted"
 
 
 class TabulatedBRDF(NamedTuple):
     """A measured BRDF table plus its derived sampling distributions.
 
     table:    (n_th, n_td, n_pd, 3) float32 — BRDF values (sr^-1), already
-              channel-scaled (MERL scales applied at load).
-    corners:  (n_th * n_td * n_pd, 24) float32 — the same data expanded so
-              each cell's row holds its 8 trilinear corners x 3 channels.
-              One contiguous 96-byte row-gather then replaces the 24 scalar
-              gathers of the naive trilinear lookup — the fast path on
-              non-TPU backends. None when built for TPU (the sorted Pallas
-              kernel reads `perm` instead; corners is 24x the table and
-              only one path ever runs).
-    perm:     ops/merl_sorted.pack_perm layout — channel-major, phi_d minor
-              zero-padded to 128 lanes — the HBM-resident tensor the sorted
-              segment kernel DMAs slabs from (BASELINE north_star's
-              "Pallas kernels over an HBM-resident BRDF tensor").
-    sampling: Marginal2D stack with leading axis N_THETA_I — per
-              incident-angle-bin half-vector distribution.
+              channel-scaled (MERL scales applied at load); or a stacked
+              (n_mat, n_th, n_td, n_pd, 3) tensor for multi-material scenes.
+    sampling: Marginal2D stack with leading axis N_THETA_I (after the
+              material axis when stacked) — per incident-angle-bin
+              half-vector distribution.
     """
 
     table: jnp.ndarray
-    corners: jnp.ndarray
     sampling: Marginal2D
-    perm: jnp.ndarray = None
-    condT: jnp.ndarray = None
 
     @staticmethod
     def build(table):
@@ -133,80 +75,23 @@ class TabulatedBRDF(NamedTuple):
 
         Called inside the jitted optimization step after each table update
         (SURVEY.md §3.5 'params.update() rebuilds sampling CDFs')."""
-        from mitsuba_customization_tpu.ops import marginal_sorted, merl_sorted
-
-        sorted_path = _eval_path() == "sorted"
-        sampling = _build_sampling(table)
-        return TabulatedBRDF(
-            table=table,
-            corners=None if sorted_path else _pack_corners(table),
-            sampling=sampling,
-            perm=merl_sorted.pack_perm(table),
-            condT=marginal_sorted.pack_condT(sampling.cdf_cond),
-        )
+        return TabulatedBRDF(table=table, sampling=_build_sampling(table))
 
     @staticmethod
     def build_stack(tables):
         """Construct from a stacked (n_mat, n_th, n_td, n_pd, 3) tensor.
 
-        The multi-material HBM-resident BRDF stack (BASELINE configs[4]:
+        The multi-material device-resident BRDF stack (BASELINE configs[4]:
         "10 MERL materials"); eval/pdf/sample then take per-lane `slot`.
         """
-        from mitsuba_customization_tpu.ops import marginal_sorted, merl_sorted
-
-        sorted_path = _eval_path() == "sorted"
-        sampling = jax.vmap(_build_sampling)(tables)
         return TabulatedBRDF(
-            table=tables,
-            corners=(
-                None if sorted_path else jax.vmap(_pack_corners)(tables)
-            ),
-            sampling=sampling,
-            perm=merl_sorted.pack_perm(tables),
-            condT=marginal_sorted.pack_condT(sampling.cdf_cond),
+            table=tables, sampling=jax.vmap(_build_sampling)(tables)
         )
 
 
 # --------------------------------------------------------------------------
 # Index math + trilinear interpolation
 # --------------------------------------------------------------------------
-
-
-def _pack_corners(table):
-    """(n_th, n_td, n_pd, 3) -> (n_th*n_td*n_pd, 24) corner-block layout.
-
-    Row r = cell (i, j, k) holds [c000, c001, c010, c011, c100, c101, c110,
-    c111] x rgb where cXYZ = table[clamp(i+X), clamp(j+Y), wrap(k+Z)] —
-    the bit pattern matches the weight combination in eval_packed. The
-    theta axes clamp at the top edge, phi_d wraps (period pi, reciprocity).
-    Pure shifted-view concatenation: cheap to rebuild inside the jitted
-    inverse-rendering step, and its VJP scatter-adds table gradients.
-    """
-    n_th, n_td, n_pd, _ = table.shape
-
-    def sh_i(x):
-        return jnp.concatenate([x[1:], x[-1:]], axis=0)
-
-    def sh_j(x):
-        return jnp.concatenate([x[:, 1:], x[:, -1:]], axis=1)
-
-    def sh_k(x):
-        return jnp.roll(x, -1, axis=2)
-
-    c000 = table
-    c010 = sh_j(table)
-    c100 = sh_i(table)
-    c110 = sh_j(c100)
-    corners = jnp.concatenate(
-        [
-            c000, sh_k(c000),
-            c010, sh_k(c010),
-            c100, sh_k(c100),
-            c110, sh_k(c110),
-        ],
-        axis=-1,
-    )
-    return corners.reshape(n_th * n_td * n_pd, 24)
 
 
 def _grid_coords(table_shape, theta_h, theta_d, phi_d):
@@ -229,8 +114,8 @@ def _trilinear_gather(table, u_th, u_td, u_pd, slot=None):
     8 corner gathers per channel (SURVEY.md §3.3: '8 gathers per channel').
     theta axes clamp at the borders; phi_d wraps (period pi). With a
     stacked table (n_mat, n_th, n_td, n_pd, 3) and per-lane `slot`, corners
-    gather from each lane's material slice — the HBM-resident multi-material
-    BRDF tensor of BASELINE.json north_star.
+    gather from each lane's material slice — the device-resident
+    multi-material BRDF tensor of BASELINE.json north_star.
     """
     n_th, n_td, n_pd = table.shape[-4], table.shape[-3], table.shape[-2]
 
@@ -280,58 +165,12 @@ def _trilinear_gather(table, u_th, u_td, u_pd, slot=None):
 def eval_raw(table, wi, wo, slot=None):
     """Interpolated BRDF value f(wi, wo) (no cosine), zero below horizon.
 
-    Reference implementation (24 scalar gathers); the hot path is
-    eval_packed below — numerically identical, one row-gather.
+    Eight (..., 3) corner gathers from the table itself; their VJP
+    scatter-adds the table gradient.
     """
     theta_h, _, theta_d, phi_d = dirs_to_half_diff(wi, wo)
     u_th, u_td, u_pd = _grid_coords(table.shape[-4:], theta_h, theta_d, phi_d)
     val = _trilinear_gather(table, u_th, u_td, u_pd, slot=slot)
-    above = jnp.logical_and(m.cos_theta(wi) > 0.0, m.cos_theta(wo) > 0.0)
-    return jnp.where(above[..., None], jnp.maximum(val, 0.0), 0.0)
-
-
-def eval_packed(corners, table_shape, wi, wo, slot=None, mask=None):
-    """Trilinear eval through the corner-block layout (_pack_corners).
-
-    One contiguous (24,) row-gather per lane + 8 fused multiply-adds —
-    the TPU-fast equivalent of eval_raw's 24 scalar gathers.
-    """
-    n_th, n_td, n_pd = table_shape
-    theta_h, _, theta_d, phi_d = dirs_to_half_diff(wi, wo)
-    u_th, u_td, u_pd = _grid_coords(
-        (n_th, n_td, n_pd, 3), theta_h, theta_d, phi_d
-    )
-    i0 = jnp.floor(u_th).astype(jnp.int32)
-    j0 = jnp.floor(u_td).astype(jnp.int32)
-    k0 = jnp.floor(u_pd).astype(jnp.int32)
-    i0p = jnp.clip(i0, 0, n_th - 2)
-    j0p = jnp.clip(j0, 0, n_td - 2)
-    k0p = jnp.mod(k0, n_pd)
-    # clamped fractions reproduce eval_raw's border clamping exactly
-    fth = jnp.clip(u_th - i0p, 0.0, 1.0)
-    ftd = jnp.clip(u_td - j0p, 0.0, 1.0)
-    fpd = u_pd - k0  # phi wraps; fraction unaffected
-
-    row = (i0p * n_td + j0p) * n_pd + k0p
-    n_cells = n_th * n_td * n_pd
-    flat = corners.reshape(-1, 24)
-    if slot is not None:
-        row = row + slot * n_cells
-    if mask is not None:
-        # masked-out lanes (run-all dispatch) read one hot row: coherent,
-        # cache-resident, no random HBM traffic
-        row = jnp.where(mask, row, 0)
-    c = flat[row].reshape(row.shape + (8, 3))
-
-    w_i = jnp.stack([1.0 - fth, fth], axis=-1)  # (..., 2)
-    w_j = jnp.stack([1.0 - ftd, ftd], axis=-1)
-    w_k = jnp.stack([1.0 - fpd, fpd], axis=-1)
-    # corner order c000..c111 with bits (i, j, k)
-    w = (
-        w_i[..., :, None, None] * w_j[..., None, :, None]
-        * w_k[..., None, None, :]
-    ).reshape(row.shape + (8,))
-    val = jnp.sum(w[..., None] * c, axis=-2)
     above = jnp.logical_and(m.cos_theta(wi) > 0.0, m.cos_theta(wo) > 0.0)
     return jnp.where(above[..., None], jnp.maximum(val, 0.0), 0.0)
 
@@ -346,44 +185,11 @@ def _normalize_slot(params, slot):
     return slot if params.table.ndim == 5 else None
 
 
-def eval_f(params: TabulatedBRDF, wi, wo, slot=None, mask=None,
-           coherent=False):
-    """Interpolated f(wi, wo) (no cosine) through the fastest available path.
-
-    TPU: ops/merl_sorted's sort + segment Pallas kernel (~12x the packed
-    row-gather at 2M lanes, scripts/bench_sorted.py). Elsewhere: the
-    corner-block packed row-gather. Both match eval_raw. coherent=True
-    skips the kernel's sort+unsort (exact, fast for primary-bounce lane
-    coherence — ops/merl_sorted.eval_sorted docstring).
-    """
+def eval_f(params: TabulatedBRDF, wi, wo, slot=None, mask=None):
+    """Interpolated f(wi, wo) (no cosine); masked-out lanes read 0."""
     slot = _normalize_slot(params, slot)
-    import numpy as _np
-
-    n_lanes = int(_np.prod(wi.shape[:-1])) if wi.ndim > 1 else 1
-    if _eval_path(n_lanes) == "sorted" and params.perm is not None:
-        from mitsuba_customization_tpu.ops import merl_sorted
-
-        lanes = wi.shape[:-1]
-        if len(lanes) == 1:
-            return merl_sorted.eval_trilinear(
-                params.table, params.perm, wi, wo, slot, mask, INTERPRET,
-                coherent,
-            )
-        def flat(x):
-            return None if x is None else x.reshape(
-                (-1,) + x.shape[len(lanes):]
-            )
-
-        out = merl_sorted.eval_trilinear(
-            params.table, params.perm, flat(wi), flat(wo),
-            flat(slot), flat(mask), INTERPRET, coherent,
-        )
-        return out.reshape(lanes + (3,))
-    if params.corners is not None:
-        shape = params.table.shape[-4:-1]
-        return eval_packed(
-            params.corners, shape, wi, wo, slot=slot, mask=mask
-        )
+    if mask is not None and slot is not None:
+        slot = jnp.where(mask, slot, 0)
     out = eval_raw(params.table, wi, wo, slot=slot)
     if mask is not None:
         out = jnp.where(mask[..., None], out, 0.0)
@@ -602,20 +408,17 @@ def _square_cells(wi_c, wo_c):
 
 
 def bounce_shade(params: TabulatedBRDF, wi, wo_nee, sample2, sample1=None,
-                 slot=None, mask=None, mask_nee=None, need_attached=False,
-                 coherent=False):
+                 slot=None, mask=None, mask_nee=None, need_attached=False):
     """All tabulated-BRDF work of one path-tracer bounce, fused.
 
-    Replaces the round-2 sequence {eval_pdf(wo_nee), sample(), eval(wo)} —
-    which paid two sorted eval-kernel passes plus 4-6 one-hot CDF fetches
-    (gigabytes of one-hot HBM traffic at wavefront scale) — with:
+    Equal to the sequence {eval_pdf(wo_nee), sample(), eval(wo)}, with
+    shared work done once:
 
-      * one ops/marginal_sorted pass: conditional-CDF inversion for the
-        luminance sample + cell masses for the NEE and cosine-branch pdfs;
-      * marginal-row work through one small one-hot fetch (<= n_mat * 32
-        rows — cheap on the MXU);
-      * ONE combined trilinear eval over [wo_nee ; wo_sampled] (2N lanes,
-        one sort, one segment walk) through eval_f's production path.
+      * one marginal-CDF row fetch per lane, inverted for the luminance
+        sample and read for the NEE and cosine-branch pdfs;
+      * three conditional-CDF row fetches (own sample, NEE, cosine
+        branch);
+      * ONE combined trilinear eval over [wo_nee ; wo_sampled] (2N lanes).
 
     Returns (f_nee, pdf_nee, wo, pdf_s, weight, is_delta) with f_nee and
     weight including the cosine term, matching eval()/sample(). All
@@ -624,11 +427,7 @@ def bounce_shade(params: TabulatedBRDF, wi, wo_nee, sample2, sample1=None,
     SURVEY.md §3.2). need_attached keeps signature parity with the
     dispatch layer (the attached eval at wo *is* the fused one here).
     """
-    from mitsuba_customization_tpu.core.distr import (
-        _fetch_stacked,
-        _invert_cdf,
-    )
-    from mitsuba_customization_tpu.ops import marginal_sorted
+    from mitsuba_customization_tpu.core.distr import _invert_cdf
 
     sg = jax.lax.stop_gradient
     slot = _normalize_slot(params, slot)
@@ -664,9 +463,9 @@ def bounce_shade(params: TabulatedBRDF, wi, wo_nee, sample2, sample1=None,
         use_cos = sample1 < COSINE_MIX
     u_row, u_col = sample2[..., 0], sample2[..., 1]
 
-    # ---- marginal-row work (small one-hot fetch + masked reductions) ----
+    # ---- marginal-row work (row fetch + masked reductions) ----
     slc = (tbin,) if slot_safe is None else (slot_safe, tbin)
-    cdf_rows = sg(_fetch_stacked(params.sampling.cdf_row, slc))  # (N, H)
+    cdf_rows = sg(params.sampling.cdf_row[slc])  # (N, H)
     r_own, row_lo, row_mass_own = _invert_cdf(cdf_rows, u_row)
     dy = jnp.clip(
         (u_row - row_lo) / jnp.maximum(row_mass_own, 1e-20), 0.0, 1.0 - 1e-7
@@ -683,32 +482,16 @@ def bounce_shade(params: TabulatedBRDF, wi, wo_nee, sample2, sample1=None,
     wo_cos = square_to_cosine_hemisphere(sample2)
     _, _, r_cos, c_cos, denom_cos = _square_cells(wi_c, wo_cos)
 
-    # ---- conditional-CDF kernel (sorted by (slot, theta_i bin)) ----
-    flat_key = tbin if slot_safe is None else (
-        slot_safe * N_THETA_I + tbin
+    # ---- conditional-CDF rows: own sample, NEE and cosine-branch cells ----
+    cdf_cond = sg(params.sampling.cdf_cond)
+    cond = cdf_cond[slc + (r_own,)]
+    col, col_lo, mass_own = _invert_cdf(cond, u_col)
+    dx = jnp.clip(
+        (u_col - col_lo) / jnp.maximum(mass_own, 1e-20), 0.0, 1.0 - 1e-7
     )
-    if _sample_path(n) == "sorted":
-        x, mass_own, mass_nee, mass_cos = marginal_sorted.cond_sample_pdf(
-            sg(params.condT), SAMPLE_RES_H, flat_key, u_col, r_own, r_nee,
-            c_nee, r_cos, c_cos, any_mask, interpret=INTERPRET,
-            coherent=coherent,
-        )
-    else:
-        # one-hot fallback (CPU tests / parity checks)
-        cond = sg(_fetch_stacked(params.sampling.cdf_cond, slc + (r_own,)))
-        col, col_lo, mass_own = _invert_cdf(cond, u_col)
-        dx = jnp.clip(
-            (u_col - col_lo) / jnp.maximum(mass_own, 1e-20), 0.0, 1.0 - 1e-7
-        )
-        x = (col.astype(jnp.float32) + dx) / SAMPLE_RES_PHI
-        cond_nee = sg(
-            _fetch_stacked(params.sampling.cdf_cond, slc + (r_nee,))
-        )
-        mass_nee = _row_mass_at(cond_nee, c_nee)
-        cond_cos = sg(
-            _fetch_stacked(params.sampling.cdf_cond, slc + (r_cos,))
-        )
-        mass_cos = _row_mass_at(cond_cos, c_cos)
+    x = (col.astype(jnp.float32) + dx) / SAMPLE_RES_PHI
+    mass_nee = _row_mass_at(cdf_cond[slc + (r_nee,)], c_nee)
+    mass_cos = _row_mass_at(cdf_cond[slc + (r_cos,)], c_cos)
 
     hw = SAMPLE_RES_H * SAMPLE_RES_PHI
 
@@ -742,13 +525,6 @@ def bounce_shade(params: TabulatedBRDF, wi, wo_nee, sample2, sample1=None,
     pdf_nee = sg(jnp.where(nee_ok & cos_wi_ok, pdf_nee, 0.0))
 
     # ---- ONE combined trilinear eval over [wo_nee ; wo_sampled] ----
-    # (one sort, one segment walk for both per-bounce evaluations).
-    # NOTE: the eval does NOT use `coherent` even at the primary bounce —
-    # measured on-chip (round 4): NEE directions are per-lane emitter
-    # *samples* (constant/area emitters randomize them), so real b0 tiles
-    # average ~170 distinct trilinear cells (p95 ~820) and the sort-free
-    # walk is 7x slower than sorting. Only the sampling-CDF kernel below
-    # is slice-coherent at b0 (~1.5 distinct slices/tile).
     wi2 = jnp.concatenate([wi, wi], axis=0)
     wo2 = jnp.concatenate([wo_nee, wo], axis=0)
     slot2 = None

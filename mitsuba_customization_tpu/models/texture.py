@@ -1,6 +1,6 @@
 """Textures: bitmap (bilinear, wrap) + procedural checkerboard.
 
-TPU-native counterpart of mitsuba3 src/textures/{bitmap,checkerboard}.cpp
+Counterpart of mitsuba3 src/textures/{bitmap,checkerboard}.cpp
 (SURVEY.md §2.4 "Textures"). All bitmap textures of a scene stack into one
 (T, H, W, 3) tensor (zero-padded to the max resolution, actual dims kept
 per slot) gathered per lane at eval time — the same stacked-tensor pattern
@@ -14,6 +14,8 @@ from typing import NamedTuple
 
 import jax.numpy as jnp
 import numpy as np
+
+from mitsuba_customization_tpu.core import math as m
 
 # texture types
 CONSTANT = 0
@@ -241,7 +243,7 @@ def _volume_eval(stack: TextureStack, mat_slot, p):
     row's world->unit-cube affine maps p into its grid; outside [0,1]^3
     evaluates to value1 (a constant fill)."""
     w2g = stack.vol_w2g[mat_slot]  # (..., 3, 4)
-    g = jnp.einsum("...ij,...j->...i", w2g[..., :3], p) + w2g[..., 3]
+    g = m.matvec(w2g[..., :3], p) + w2g[..., 3]
     dims = stack.vol_dims[mat_slot]
     slot = stack.vol_slot[mat_slot]
     d = dims[..., 0].astype(jnp.float32)

@@ -1,40 +1,76 @@
 """ctypes bindings to the native runtime library (native/mct_native.cpp).
 
-TPU-native counterpart of the reference's C++ host runtime (SURVEY.md §2.3):
-fast MERL IO, BVH build, OBJ parsing. Every entry point has a pure-Python
+Counterpart of the reference's C++ host runtime (SURVEY.md §2.3): fast
+MERL IO, BVH build, OBJ parsing. Every entry point has a pure-Python
 fallback (models/merl.py, render/bvh.py, utils/obj.py), so the framework
 works without the library; `available()` reports whether the fast path is
-loaded. Build with native/build.sh.
+loaded. The library is compiled from source with g++ at first use into
+native/build/ (see `build_library`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
 from pathlib import Path
 
 import numpy as np
 
+NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
+BUILD_DIR = NATIVE_DIR / "build"
+
 _LIB = None
-_SEARCH = [
-    Path(__file__).parent.parent / "native" / "libmct_native.so",
-    Path(__file__).parent / "libmct_native.so",
-]
+
+
+def build_library(src: Path, argv: list, tag: str) -> Path:
+    """Compile `src` with compiler command `argv` into a shared library.
+
+    The output name carries a hash of the source and the command, so an
+    edit rebuilds and an unchanged tree reuses the library. The compiler
+    writes a private temporary file that is renamed into place, so
+    concurrent processes never load a half-written library.
+    """
+    key = hashlib.sha256(
+        src.read_bytes() + " ".join(argv).encode()
+    ).hexdigest()[:16]
+    out = BUILD_DIR / f"lib{src.stem}-{tag}-{key}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [*argv, "-o", str(tmp), str(src)], capture_output=True, text=True
+    )
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"building {src.name} failed:\n{proc.stderr[-4000:]}"
+        )
+    os.replace(tmp, out)
+    return out
 
 
 def _load():
     global _LIB
     if _LIB is not None:
         return _LIB
-    for p in _SEARCH:
-        if p.exists():
-            lib = ctypes.CDLL(str(p))
-            lib.mct_read_merl.restype = ctypes.c_int
-            lib.mct_build_bvh.restype = ctypes.c_int
-            lib.mct_parse_obj.restype = ctypes.c_int
-            _LIB = lib
-            return lib
     _LIB = False
-    return False
+    if shutil.which("g++") is None:
+        return _LIB
+    path = build_library(
+        NATIVE_DIR / "mct_native.cpp",
+        ["g++", "-O3", "-fPIC", "-shared", "-std=c++17"],
+        "host",
+    )
+    lib = ctypes.CDLL(str(path))
+    lib.mct_read_merl.restype = ctypes.c_int
+    lib.mct_build_bvh.restype = ctypes.c_int
+    lib.mct_parse_obj.restype = ctypes.c_int
+    _LIB = lib
+    return lib
 
 
 def available():

@@ -1,18 +1,9 @@
-"""Pallas TPU kernels + MXU-friendly primitives for the hot paths.
+"""Hand-written kernels for the hot paths.
 
 The reference's drjit-core emits fused CUDA/LLVM kernels for the render
-loop (SURVEY.md §2.2); BASELINE.json north_star pins the TPU equivalent:
-"BSDF stage evaluates ... MERL tables ... as Pallas kernels over an
-HBM-resident BRDF tensor" and "Dr.Jit vcall -> static Pallas kernel
-table". This package is that layer:
+loop (SURVEY.md §2.2). Here XLA compiles the render loop from plain JAX,
+and this package holds the one operation written by hand:
 
-* merl_sorted — exact trilinear MERL/tabulated-BRDF evaluation via
-  sort-by-cell segmentation + a Pallas kernel that DMAs per-segment table
-  slabs and does the interpolation on the VPU. Replaces per-lane HBM
-  gathers, which measure latency-bound-serial (~45 ns/row) on TPU v5e.
-* onehot — MXU one-hot row fetch for small tables (sampling CDFs):
-  a (N, R) one-hot contraction against an (R, C) table runs at matmul
-  speed, ~100x faster than XLA's serial gather for R <= 512.
+* traverse — skip-link BVH traversal, one ray per thread, compiled from
+  native/bvh_traverse.cu and called through the XLA FFI.
 """
-
-from mitsuba_customization_tpu.ops import merl_sorted, onehot  # noqa: F401

@@ -1,11 +1,11 @@
 """Device-mesh sharded rendering and gradient all-reduce.
 
-TPU-native counterpart of the reference's distributed execution layer
+Counterpart of the reference's distributed execution layer
 (SURVEY.md §2.6 K3 Scheduler/RemoteWorker/mtssrv, §2.8): the Mitsuba 0.6
 scheduler serializes 32x32 tiles over TCP to remote workers; here the image
 rows shard across a `jax.sharding.Mesh` via `shard_map` (SURVEY.md §2.7
-P1/P3 mapping, BASELINE.json north_star: "Rays/pixels shard across a
-multi-host TPU pod slice"), the scene/BRDF tensors replicate per device
+P1/P3 mapping, BASELINE.json north_star: rays/pixels shard across the
+devices), the scene/BRDF tensors replicate per device
 (P7), and parameter gradients `psum` over the mesh — XLA's latency-hiding
 scheduler overlaps the all-reduce with the backward sweep (P6).
 
@@ -223,11 +223,10 @@ def loss_and_grad_sharded(scene, params, target, mesh=None, spp=None, seed=0):
         mesh=mesh,
         in_specs=(P(), P(), P(axes)),
         out_specs=(P(), P()),
-        # check_vma=False: the Pallas kernels on the sharded path cannot
-        # participate in vma tracking (their kernel bodies mix varying
-        # refs with literals, and the pvary op has no TPU lowering).
-        # Without vma checking shard_map does NOT insert the implicit
-        # psum for the replicated-params gradient — it is EXPLICIT below.
+        # check_vma=False: the traversal kernel's FFI call takes no part
+        # in vma tracking. Without vma checking shard_map does NOT insert
+        # the implicit psum for the replicated-params gradient — it is
+        # EXPLICIT below.
         check_vma=False,
     )
     def body(scene_rep, params_rep, target_in):

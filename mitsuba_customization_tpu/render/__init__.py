@@ -1,6 +1,6 @@
 """Rendering layer: scene, shapes, BVH, emitters, sensors, film, integrators.
 
-TPU-native counterpart of mitsuba3 src/render (librender) + the plugin
+Counterpart of mitsuba3 src/render (librender) + the plugin
 families (SURVEY.md §2.3/§2.4), restructured as pure-jnp wavefront stages.
 """
 

@@ -1,6 +1,6 @@
 """Differentiable rendering: path-replay backprop + inverse-rendering loop.
 
-TPU-native counterpart of mitsuba3 python/ad/integrators/{common,prb}.py +
+Counterpart of mitsuba3 python/ad/integrators/{common,prb}.py +
 ad/optimizers.py (SURVEY.md §2.5, call stack §3.2/§3.5). The reference's
 `prb` replays the path during dr.backward with identical seeds; here the
 same algorithm falls out of composition (render/integrator.py docstring):

@@ -1,6 +1,6 @@
 """Bidirectional path tracer (`bdpt`) — streaming 3-strategy BDPT.
 
-TPU-native first member of the reference's bidirectional family
+First member of the reference's bidirectional family
 ([S0] mitsuba/src/libbidir/ + src/integrators/bdpt/ — SURVEY.md §2.6;
 round-4 verdict "begin bdpt"). The classic implementation stores both
 subpaths as vertex arrays and connects every (s, t) pair; storing

@@ -1,6 +1,6 @@
 """BVH: host-side binned-SAH build + lock-step skip-link traversal.
 
-TPU-native replacement for the reference's acceleration layer (SURVEY.md
+Replacement for the reference's acceleration layer (SURVEY.md
 §2.3 L3: Embree BVH / OptiX GAS / native kd-tree). Design (SURVEY.md §7.1,
 §7.3 item 1):
 
@@ -9,8 +9,8 @@ TPU-native replacement for the reference's acceleration layer (SURVEY.md
   node stores the index of the node to visit when its subtree is done or
   its box is missed. Traversal then needs no stack — each ray carries a
   single node cursor, and all rays advance in lock-step inside one
-  `lax.while_loop`, which is exactly the uniform control flow the TPU VPU
-  wants (no divergence beyond per-lane masking).
+  `lax.while_loop` (no divergence beyond per-lane masking). The same
+  arrays are walked one ray per thread by ops/traverse.py.
 * Leaves hold LEAF_SIZE primitive slots (padded with -1) so the leaf test
   is a static unrolled masked loop — no dynamic shapes under jit.
 * `native/` provides an optional C++ builder for big scenes (same array

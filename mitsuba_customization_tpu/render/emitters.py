@@ -1,7 +1,7 @@
 """Emitters: area, constant, envmap, point, spot, directional,
 directionalarea, projector.
 
-TPU-native counterpart of mitsuba3 src/emitters/ (SURVEY.md §2.4) plus the
+Counterpart of mitsuba3 src/emitters/ (SURVEY.md §2.4) plus the
 scene-level emitter sampling of src/render/scene.cpp
 (Scene::sample_emitter_direction / pdf_emitter_direction — SURVEY.md §2.3).
 Same masked static dispatch as the BSDF table (SURVEY.md §7.1): emitter
@@ -29,7 +29,6 @@ from mitsuba_customization_tpu.core.warp import (
     square_to_uniform_triangle,
 )
 from mitsuba_customization_tpu.render import geometry as geo
-from mitsuba_customization_tpu.ops.onehot import take_rows
 from mitsuba_customization_tpu.render.records import DirectionSample
 
 AREA = 0
@@ -74,10 +73,8 @@ class EmitterTable(NamedTuple):
     proj_to_world: jnp.ndarray = None  # (3, 3) columns = right/up/forward
     proj_tan: jnp.ndarray = None  # () tan(fov_x / 2)
     proj_index: jnp.ndarray = None  # () int32 projector emitter id, -1 none
-    # Compact (Q,)-row copy of the emissive prims' Geometry. NEE position
-    # sampling gathers from these Q rows instead of the full P-prim soup —
-    # the full-soup one-hot gather_tree was O(lanes * P) MXU work (185 ms
-    # at 2M lanes on a 20k-prim scene, PROFILE_stage_r05.json).
+    # Compact (Q,)-row copy of the emissive prims' Geometry: NEE position
+    # sampling gathers from these Q rows instead of the full P-prim soup.
     em_geom: object = None
 
     @property
@@ -91,9 +88,7 @@ class EmitterTable(NamedTuple):
 
 
 def prim_surface_area(geom: geo.Geometry, prim):
-    from mitsuba_customization_tpu.ops.onehot import gather_tree
-
-    g = gather_tree(geom, prim)
+    g = jax.tree_util.tree_map(lambda a: a[prim], geom)
     tri_area = 0.5 * m.norm(jnp.cross(g.e1, g.e2))
     sph_area = 4.0 * jnp.pi * g.e1[..., 0] ** 2
     cyl_area = 2.0 * jnp.pi * g.e2[..., 0] * m.norm(g.e1)
@@ -105,9 +100,7 @@ def prim_surface_area(geom: geo.Geometry, prim):
 
 def _sample_position_on_prim(geom: geo.Geometry, prim, sample2):
     """Uniform-area point + outward normal on a primitive."""
-    from mitsuba_customization_tpu.ops.onehot import gather_tree
-
-    g = gather_tree(geom, prim)
+    g = jax.tree_util.tree_map(lambda a: a[prim], geom)
     # Triangle: uniform barycentric.
     b = square_to_uniform_triangle(sample2)
     p_tri = g.p0 + b[..., 0:1] * g.e1 + b[..., 1:2] * g.e2
@@ -156,11 +149,11 @@ def _env_dir_from_uv(uv, to_world):
     theta = uv[..., 0] * jnp.pi
     phi = uv[..., 1] * 2.0 * jnp.pi - jnp.pi
     d_local = m.sph_to_dir(theta, phi)
-    return d_local @ to_world.T
+    return m.matvec(to_world, d_local)
 
 
 def _env_uv_from_dir(d_world, to_world):
-    d = d_world @ to_world  # inverse of rotation = transpose
+    d = m.vecmat(d_world, to_world)  # inverse of rotation = transpose
     theta, phi = m.dir_to_sph(d)
     return jnp.stack(
         [theta / jnp.pi, (phi + jnp.pi) / (2.0 * jnp.pi)], axis=-1
@@ -215,7 +208,7 @@ def sample_direction(
     k, u0 = table.select.sample_reuse(sample3[..., 0])
     u2 = jnp.stack([u0, sample3[..., 1]], axis=-1)
     u_pos = sample3[..., 1:3]
-    et = take_rows(table.em_type, k)
+    et = table.em_type[k]
     sel_pmf = table.select.eval_pmf(k)
 
     out_d = jnp.zeros(p_ref.shape)
@@ -240,7 +233,7 @@ def sample_direction(
     if table.em_geom is not None:
         x, n_e = _sample_position_on_prim(table.em_geom, q, u_pos)
     else:
-        prim = take_rows(table.em_prims, q)
+        prim = table.em_prims[q]
         x, n_e = _sample_position_on_prim(geom, prim, u_pos)
     to_x = x - p_ref
     dist2 = m.squared_norm(to_x)
@@ -248,11 +241,11 @@ def sample_direction(
     d = to_x / dist[..., None]
     cos_e = m.dot(n_e, -d)
     pmf_q = table.prim_dist.eval_pmf(q, slice_=(k,))
-    p_area = m.safe_div(pmf_q, take_rows(table.prim_area, q))
+    p_area = m.safe_div(pmf_q, table.prim_area[q])
     pdf_sa = m.safe_div(p_area * dist2, cos_e)
     front = cos_e > 0.0
     rad = jnp.where(
-        front[..., None], take_rows(table.radiance, k), 0.0
+        front[..., None], table.radiance[k], 0.0
     )
     put(
         mask_area,
@@ -274,7 +267,7 @@ def sample_direction(
         d_c,
         jnp.full(dist.shape, jnp.inf),
         jnp.full(dist.shape, INV_FOUR_PI),
-        take_rows(table.radiance, k),
+        table.radiance[k],
         jnp.zeros_like(mask_const),
     )
 
@@ -285,7 +278,7 @@ def sample_direction(
         d_e = _env_dir_from_uv(uv_e, table.env_to_world)
         sin_t = jnp.sin(uv_e[..., 0] * jnp.pi)
         pdf_e = m.safe_div(p_sq, 2.0 * jnp.pi * jnp.pi * sin_t)
-        rad_e = env_radiance(table, d_e) * take_rows(table.radiance, k)
+        rad_e = env_radiance(table, d_e) * table.radiance[k]
         put(
             mask_env,
             d_e,
@@ -297,11 +290,11 @@ def sample_direction(
 
     # ---- point ----
     mask_point = et == POINT
-    to_p = take_rows(table.position, k) - p_ref
+    to_p = table.position[k] - p_ref
     pdist2 = m.squared_norm(to_p)
     pdist = jnp.sqrt(jnp.maximum(pdist2, 1e-12))
     d_p = to_p / pdist[..., None]
-    rad_p = take_rows(table.radiance, k) / pdist2[..., None]
+    rad_p = table.radiance[k] / pdist2[..., None]
     put(
         mask_point,
         d_p,
@@ -313,11 +306,11 @@ def sample_direction(
 
     # ---- spot ----
     mask_spot = et == SPOT
-    cos_spot = m.dot(take_rows(table.direction, k), -d_p)
+    cos_spot = m.dot(table.direction[k], -d_p)
     falloff = jnp.clip(
         m.safe_div(
-            cos_spot - take_rows(table.cutoff_cos, k),
-            take_rows(table.beam_cos, k) - take_rows(table.cutoff_cos, k),
+            cos_spot - table.cutoff_cos[k],
+            table.beam_cos[k] - table.cutoff_cos[k],
         ),
         0.0,
         1.0,
@@ -334,13 +327,13 @@ def sample_direction(
 
     # ---- directional ----
     mask_dir = et == DIRECTIONAL
-    d_d = -take_rows(table.direction, k)
+    d_d = -table.direction[k]
     put(
         mask_dir,
         jnp.broadcast_to(d_d, p_ref.shape),
         jnp.full(dist.shape, jnp.inf),
         jnp.ones_like(dist),
-        take_rows(table.radiance, k),
+        table.radiance[k],
         jnp.ones_like(mask_dir),
     )
 
@@ -351,7 +344,7 @@ def sample_direction(
     # mean authored prim normal in `direction`).
     mask_da = et == DIRECTIONALAREA
     if table.em_prim_emitter is not None:
-        d_da = -take_rows(table.direction, k)
+        d_da = -table.direction[k]
         geom_q = jax.tree_util.tree_map(
             lambda a: a[table.em_prims], geom
         )
@@ -367,7 +360,7 @@ def sample_direction(
             d_da,
             jnp.where(on_beam, t_hit, jnp.inf),
             jnp.where(on_beam, 1.0, 0.0),
-            take_rows(table.radiance, k),
+            table.radiance[k],
             jnp.ones_like(mask_da),
         )
 
@@ -375,7 +368,7 @@ def sample_direction(
     mask_proj = et == PROJECTOR
     if table.proj_index is not None:
         # direction/distance identical to the point branch (d_p, pdist)
-        dl = (-d_p) @ table.proj_to_world  # local: x right, y up, z fwd
+        dl = m.vecmat(-d_p, table.proj_to_world)  # local: x right, y up, z fwd
         z = jnp.maximum(dl[..., 2], 1e-12)
         x = dl[..., 0] / z
         y = dl[..., 1] / z
@@ -389,7 +382,7 @@ def sample_direction(
         )  # (row from top, col)
         tex = _bilinear_lookup(img, uv)
         rad_pr = (
-            tex * take_rows(table.radiance, k) / pdist2[..., None]
+            tex * table.radiance[k] / pdist2[..., None]
             * inside[..., None]
         )
         put(
@@ -431,9 +424,8 @@ def _q_of_prim(table: EmitterTable, prim):
 
     em_prims is built sorted ascending (scene compile appends shapes in
     prim order), so q is the rank of `prim` among em_prims — a broadcast
-    compare+reduce. The (P,)-entry prim_to_q gather this replaces costs
-    ~15 ms per 2M lanes on v5e (round-5 frame trace); the rank compare is
-    ~Q vector ops. Falls back to the gather for very large Q. Only valid
+    compare+reduce of ~Q vector ops per lane. Falls back to the (P,)-entry
+    prim_to_q gather for very large Q. Only valid
     on lanes where si.emitter >= 0 (callers mask)."""
     Q = table.em_prims.shape[0]
     if Q <= 1024:
@@ -455,7 +447,7 @@ def pdf_hit_direction(table: EmitterTable, geom: geo.Geometry, si, p_ref):
     d = to_x * m.safe_rsqrt(dist2)[..., None]
     cos_e = m.dot(si.n, -d)
     pdf_sa = m.safe_div(
-        pmf_q / jnp.maximum(take_rows(table.prim_area, qs), 1e-12) * dist2,
+        pmf_q / jnp.maximum(table.prim_area[qs], 1e-12) * dist2,
         cos_e,
     )
     return jnp.where(valid & (cos_e > 0), sel * pdf_sa, 0.0)
@@ -471,7 +463,7 @@ def pdf_hit_area(table: EmitterTable, si):
     em = jnp.maximum(si.emitter, 0)
     pmf_q = table.prim_dist.eval_pmf(qs, slice_=(em,))
     sel = table.select.eval_pmf(em)
-    p = sel * pmf_q / jnp.maximum(take_rows(table.prim_area, qs), 1e-12)
+    p = sel * pmf_q / jnp.maximum(table.prim_area[qs], 1e-12)
     return jnp.where(valid, p, 0.0)
 
 
@@ -512,7 +504,7 @@ def eval_hit(table: EmitterTable, si):
     # origin (si.n is unflipped; to_world(si.wi) points toward the origin).
     front = m.dot(si.n, si.to_world(si.wi)) > 0.0
     # only area emitters emit from surfaces
-    is_area = take_rows(table.em_type, em) == AREA
+    is_area = table.em_type[em] == AREA
     return jnp.where(
-        (valid & front & is_area)[..., None], take_rows(table.radiance, em), 0.0
+        (valid & front & is_area)[..., None], table.radiance[em], 0.0
     )

@@ -1,6 +1,6 @@
 """Film + reconstruction filters: sample accumulation into the image.
 
-TPU-native counterpart of mitsuba3 src/render/{imageblock,film}.cpp +
+Counterpart of mitsuba3 src/render/{imageblock,film}.cpp +
 src/films/hdrfilm.cpp + src/rfilters/ (SURVEY.md §2.3/§2.4). The reference
 scatters weighted splats atomically (ImageBlock::put via scatter_reduce);
 here rays are pixel-major so box filtering is a reshape-mean, and wider
@@ -160,7 +160,7 @@ def develop_box(values, height, width, spp):
 def develop_box_blocked(values, height, width, spp, block):
     """develop_box for block-ordered lanes (render/integrator._BLOCK):
     lane layout (by, bx, y_in_block, x_in_block, spp, c) -> (H, W, c).
-    Pure reshape+transpose — free data movement on TPU."""
+    Pure reshape+transpose."""
     c = values.shape[-1]
     v = values.reshape(
         height // block, width // block, block, block, spp, c

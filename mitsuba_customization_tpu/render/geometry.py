@@ -1,7 +1,7 @@
 """Unified primitive soup (triangles + spheres + cylinders) and ray
 intersection.
 
-TPU-native counterpart of mitsuba3 src/render/{shape,mesh}.cpp and the
+Counterpart of mitsuba3 src/render/{shape,mesh}.cpp and the
 sphere/obj/ply/rectangle/cube shape plugins (SURVEY.md §2.3/§2.4). All
 shapes flatten into per-primitive SoA arrays — denormalized, gather-friendly
 — so one vectorized kernel intersects the whole scene in lock-step (the
@@ -161,9 +161,7 @@ def intersect_brute(geom: Geometry, ray: Ray):
         prim_idx=None,
     )  # (N, P) via broadcast
     t = jnp.where(t < ray.maxt[..., None], t, jnp.inf)
-    # Masked reductions instead of argmin + take_along_axis: per-lane
-    # column selection is ~1000x slower than compares/reduces on TPU v5e
-    # (core/distr.py design rule), and P is small here.
+    # Masked reductions pick the first nearest prim (P is small here).
     t_best = jnp.min(t, axis=-1)
     p_count = t.shape[-1]
     iota = jax.lax.broadcasted_iota(jnp.int32, t.shape, t.ndim - 1)
@@ -188,22 +186,8 @@ def occluded_brute(geom: Geometry, ray: Ray):
 def compute_interaction(geom: Geometry, ray: Ray, t, prim, u, v):
     """Build the SurfaceInteraction for nearest hits (compute_surface_
     interaction analogue — mitsuba3 PreliminaryIntersection3f)."""
-    from mitsuba_customization_tpu.ops.onehot import gather_tree
-
     safe = jnp.maximum(prim, 0)
-    # one fused MXU one-hot fetch for all 13 per-prim fields: XLA's native
-    # per-lane gather costs ~3.8 ms per 2M lanes PER FIELD even from a
-    # 5-row table (round-3 trace) — this was the largest non-sort cost of
-    # the whole bounce.
-    g = gather_tree(geom, safe)
-    return interaction_from_g(g, ray, t, prim, u, v)
-
-
-def interaction_from_g(g: Geometry, ray: Ray, t, prim, u, v):
-    """SurfaceInteraction from per-lane winner Geometry rows `g`.
-
-    The cluster intersector (ops/clusters.py) resolves winner fields
-    in-kernel and calls this directly, skipping the per-lane gather."""
+    g = jax.tree_util.tree_map(lambda a: a[safe], geom)
     valid = prim >= 0
 
     p = ray.o + ray.d * jnp.where(valid, t, 0.0)[..., None]

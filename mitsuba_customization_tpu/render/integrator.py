@@ -1,6 +1,6 @@
 """Integrators: MIS path tracer (NEE) + direct/depth/aov variants.
 
-TPU-native counterpart of mitsuba3 src/integrators/path.cpp +
+Counterpart of mitsuba3 src/integrators/path.cpp +
 src/render/integrator.cpp (SURVEY.md §2.3/§2.4, call stack §3.1). The
 reference records the bounce loop as a Dr.Jit megakernel; here it is a
 `lax.scan` over a static bounce count with per-lane `active` masks — the
@@ -23,7 +23,6 @@ from mitsuba_customization_tpu.core.sampler import make_sampler
 from mitsuba_customization_tpu.models import bsdf as bsdf_mod
 from mitsuba_customization_tpu.models import phase as phase_mod
 from mitsuba_customization_tpu.models.normalmap import apply_normal_maps
-from mitsuba_customization_tpu.ops.onehot import take_rows
 from mitsuba_customization_tpu.render import emitters as em_mod
 from mitsuba_customization_tpu.render import film as film_mod
 from mitsuba_customization_tpu.render import geometry as geo
@@ -41,14 +40,15 @@ _OFF_NEE = 4
 
 _SHADOW_INF = 1e30
 
-# Pixel-block edge for the coherent (blocked) lane ordering: one Pallas
-# tile (2048 lanes) covers a 16x16 pixel patch at 8 spp per pass.
+# Pixel-block edge for the blocked lane ordering: neighbouring lanes trace
+# neighbouring pixels, so their rays walk similar BVH nodes and read
+# nearby table cells.
 _BLOCK = 16
 
 # Maximum lanes traced per pass. Larger renders loop over spp chunks via
-# lax.scan (the wavefront structure of SURVEY.md §2.7 P5): bounded HBM for
-# ray state + sampler CDF gathers, one compiled pass graph regardless of
-# spp. 2^21 lanes x ~50 floats of live state stays well under 1 GB.
+# lax.scan (the wavefront structure of SURVEY.md §2.7 P5): bounded device
+# memory for ray state, one compiled pass graph regardless of spp. 2^21
+# lanes x ~50 floats of live state stays well under 1 GB.
 MAX_WAVEFRONT = 1 << 21
 
 
@@ -91,8 +91,8 @@ _UNROLL_MAX = 16
 
 def _run_bounces(body, init, max_depth):
     """body(carry, b, static_b) — static_b is the Python bounce index in
-    unroll mode (lets per-bounce specialization like the coherent
-    primary-bounce kernels constant-fold) and None under lax.scan."""
+    unroll mode (lets per-bounce specialization constant-fold) and None
+    under lax.scan."""
     mode = BOUNCE_LOOP or ("unroll" if max_depth <= _UNROLL_MAX else "scan")
     if mode == "unroll":
         carry = init
@@ -110,7 +110,7 @@ def _compact_caps(n, fracs, max_depth):
     """Static per-bounce lane capacities from fractional schedule `fracs`.
 
     caps[b] = lanes kept alive entering bounce b, rounded up to a 2048
-    multiple (the sorted kernels' tile size), monotonically non-increasing,
+    multiple (few distinct shapes to compile), monotonically non-increasing,
     caps[0] = n. Entries beyond len(fracs) repeat the last fraction."""
     caps = [n]
     for b in range(1, max_depth):
@@ -140,7 +140,7 @@ def _systematic_survive(active, cap, u):
 
 
 def trace_paths(scene, ray0, sampler, max_depth, rr_depth, hide_emitters,
-                ad_mode=False, coherent0=False, compact_caps=None):
+                ad_mode=False, compact_caps=None):
     """Per-lane path-traced radiance for primary rays ray0.
 
     Returns (L (N, 3), stats dict). Differentiable w.r.t. scene parameters
@@ -197,9 +197,8 @@ def trace_paths(scene, ray0, sampler, max_depth, rr_depth, hide_emitters,
             CAMERA_DIMS + b.astype(jnp.uint32) * BOUNCE_DIMS
         )
 
-        # Dead lanes trace with maxt = 0: the cluster kernels then park
-        # their origins outside the scene (_pad_rays) and all-dead tiles
-        # skip traversal entirely. Consumers of si are gated on `active`.
+        # Dead lanes trace with maxt = 0, which ends their traversal at
+        # once. Consumers of si are gated on `active`.
         si = scene.ray_intersect(
             Ray(o=ray.o, d=ray.d, maxt=jnp.where(active, ray.maxt, 0.0))
         )
@@ -275,7 +274,7 @@ def trace_paths(scene, ray0, sampler, max_depth, rr_depth, hide_emitters,
             bsdf_mod.bounce_shade(
                 scene.bsdfs, si.mat_id, si.wi, wo_local, u2, u_lobe,
                 uv=texcoords(scene, si), need_attached=ad_mode, has_nee=do_nee,
-                active=active, coherent=(coherent0 and static_b == 0),
+                active=active,
                 nee_mask=nee_vis,
             )
         )
@@ -380,46 +379,6 @@ def _run_bounces_compact(scene, bounce, init, sampler, _smp, max_depth,
     caps = _compact_caps(N, tuple(fracs), max_depth)
     tag = jnp.arange(N, dtype=jnp.int32)
 
-    # Spatial re-sort: when the cluster packet intersector is active, the
-    # per-bounce sort orders survivors by (direction octant, origin
-    # Morton cell) instead of lane order — each 2048-lane kernel tile
-    # then touches a small union of clusters (the packet kernel's cost
-    # model, ops/clusters.py). The final tag unsort already restores
-    # film order, so the permutation is free beyond the sort itself.
-    spatial = (
-        scene.config.intersector == "cluster" and scene.clusters is not None
-    )
-    if spatial:
-        sc = scene.clusters.sc_box
-        s_lo = jnp.min(sc[:, 0:3], axis=0)
-        s_hi = jnp.max(sc[:, 3:6], axis=0)
-        s_span = jnp.maximum(s_hi - s_lo, 1e-6)
-
-        def _spatial_key(o3, d3):
-            # 21-bit Morton (128^3 cells — finer than a cluster, coarse
-            # Morton degenerates to octant-only sorting) + 3-bit octant.
-            oct_ = (
-                (d3[:, 0] > 0).astype(jnp.int32)
-                + 2 * (d3[:, 1] > 0).astype(jnp.int32)
-                + 4 * (d3[:, 2] > 0).astype(jnp.int32)
-            )
-            cell = jnp.clip(
-                ((o3 - s_lo) / s_span * 127.99).astype(jnp.int32), 0, 127
-            )
-
-            def spread(x):  # 7-bit -> every 3rd bit
-                x = (x | (x << 16)) & 0x030000FF
-                x = (x | (x << 8)) & 0x0300F00F
-                x = (x | (x << 4)) & 0x030C30C3
-                x = (x | (x << 2)) & 0x09249249
-                return x
-
-            m = (
-                spread(cell[:, 0])
-                | (spread(cell[:, 1]) << 1)
-                | (spread(cell[:, 2]) << 2)
-            )
-            return (oct_ << 21) | m
     smp_names = ["lane"] + [
         nm for nm in ("pixel", "sample_index") if hasattr(sampler, nm)
     ]
@@ -434,30 +393,22 @@ def _run_bounces_compact(scene, bounce, init, sampler, _smp, max_depth,
     compacted = False
     for b in range(max_depth):
         cap = caps[b]
-        need_thin = cap < cur
-        if need_thin or (spatial and b >= 1):
+        if cap < cur:
             compacted = True
             act = full["active"][:cur]
-            if need_thin:
-                u = _uniform_from_bits(
-                    hash_combine(
-                        hash_combine(sampler.seed, jnp.uint32(0xC09AC7)),
-                        jnp.uint32(b),
-                    )
+            u = _uniform_from_bits(
+                hash_combine(
+                    hash_combine(sampler.seed, jnp.uint32(0xC09AC7)),
+                    jnp.uint32(b),
                 )
-                survive, p = _systematic_survive(act, cap, u)
-                p = jax.lax.stop_gradient(p)
-            else:
-                survive, p = act, jnp.float32(1.0)
+            )
+            survive, p = _systematic_survive(act, cap, u)
+            p = jax.lax.stop_gradient(p)
             thr_p = jnp.where(
                 survive[..., None], full["thr"][:cur] / p, full["thr"][:cur]
             )
             iota = jnp.arange(cur, dtype=jnp.int32)
-            if spatial:
-                skey = _spatial_key(full["o"][:cur], full["d"][:cur])
-                key = jnp.where(survive, skey, jnp.int32(1 << 25))
-            else:
-                key = jnp.where(survive, iota, iota + jnp.int32(cur))
+            key = jnp.where(survive, iota, iota + jnp.int32(cur))
             flags = (
                 (full["tag"][:cur] << 2)
                 | (survive.astype(jnp.int32) << 1)
@@ -466,7 +417,7 @@ def _run_bounces_compact(scene, bounce, init, sampler, _smp, max_depth,
             # maxt does NOT ride the sort: after bounce 0 every spawned ray
             # carries maxt = inf (the spawn at the end of `bounce` resets
             # it), so it is reconstructed below — one fewer 2M-lane sort
-            # operand (~1.2 ms/operand on v5e).
+            # operand.
             ops = [
                 key,
                 flags,
@@ -495,8 +446,7 @@ def _run_bounces_compact(scene, bounce, init, sampler, _smp, max_depth,
                 jnp.concatenate([sn, a[cur:]], 0)
                 for sn, a in zip(s[15:], smp_full)
             ]
-            if need_thin:
-                cur = cap
+            cur = cap
 
         smp_b = sampler.clone()
         for nm, a in zip(smp_names, smp_full):
@@ -530,7 +480,7 @@ def _run_bounces_compact(scene, bounce, init, sampler, _smp, max_depth,
 
 
 def trace_volpath(scene, ray0, sampler, max_depth, rr_depth, hide_emitters,
-                  ad_mode=False, coherent0=False, compact_caps=None):
+                  ad_mode=False, compact_caps=None):
     """Volumetric path tracer (mitsuba3 src/integrators/volpath.cpp analogue).
 
     Extends trace_paths with participating media (render/medium.py):
@@ -602,12 +552,12 @@ def trace_volpath(scene, ray0, sampler, max_depth, rr_depth, hide_emitters,
 
         mid_safe = jnp.maximum(mid, 0)
         ph_type = (
-            take_rows(media.phase_type, mid_safe) if media.n_media
+            media.phase_type[mid_safe] if media.n_media
             else mid_safe
         )
-        ph_g = take_rows(media.phase_g, mid_safe) if media.n_media else zero
+        ph_g = media.phase_g[mid_safe] if media.n_media else zero
         ph_S = (
-            take_rows(media.phase_S, mid_safe)
+            media.phase_S[mid_safe]
             if (media.n_media and media.phase_S is not None) else None
         )
         wi_world = -ray.d  # points back along the ray (phase convention)
@@ -680,7 +630,7 @@ def trace_volpath(scene, ray0, sampler, max_depth, rr_depth, hide_emitters,
          f_attached) = bsdf_mod.bounce_shade(
             scene.bsdfs, si.mat_id, si.wi, wo_local, u2, u_lobe,
             uv=texcoords(scene, si), need_attached=ad_mode, has_nee=do_nee,
-            active=real_surf, coherent=(coherent0 and static_b == 0),
+            active=real_surf,
             nee_mask=nee_vis,
         )
 
@@ -750,8 +700,8 @@ def trace_volpath(scene, ray0, sampler, max_depth, rr_depth, hide_emitters,
         # medium switches at null boundaries: entering picks the shape's
         # interior medium, exiting returns to vacuum (docstring contract)
         entering = m.dot(ray.d, si.n) < 0.0
-        shape_of = take_rows(scene.geometry.shape_id, jnp.maximum(si.prim, 0))
-        interior = take_rows(media.shape_interior, shape_of)
+        shape_of = scene.geometry.shape_id[jnp.maximum(si.prim, 0)]
+        interior = media.shape_interior[shape_of]
         mid_after_null = jnp.where(entering, interior, -1)
         mid = jnp.where(null_surf, mid_after_null, mid)
 
@@ -788,9 +738,24 @@ def trace_volpath(scene, ray0, sampler, max_depth, rr_depth, hide_emitters,
     return L, {"rays_per_bounce": rays_per_bounce}
 
 
+def camera_rays(scene, spp, seed, pixel, sample_idx):
+    """Primary rays of (pixel, sample_idx) lanes -> (ray, film_xy, sampler
+    positioned after the camera dimensions)."""
+    cfg = scene.config
+    h, w = cfg.height, cfg.width
+    smp = make_sampler(cfg.sampler, seed, pixel, sample_idx, spp)
+    jitter = smp.next_2d()
+    aperture = smp.next_2d()
+    px = (pixel % jnp.uint32(w)).astype(jnp.float32)
+    py = (pixel // jnp.uint32(w)).astype(jnp.float32)
+    film_xy = jnp.stack([px, py], axis=-1) + jitter
+    film_uv = film_xy / jnp.asarray([w, h], dtype=jnp.float32)
+    return sample_ray(scene.sensor, film_uv, aperture, w / h), film_xy, smp
+
+
 def render_lanes(scene, spp, seed, integrator=None, max_depth=None,
                  ad_mode=False, lane_offset=0, n_lanes=None,
-                 pixel=None, sample_idx=None, coherent0=False):
+                 pixel=None, sample_idx=None):
     """Trace pixel*spp lanes; returns (L (N,3), film_xy (N,2), stats).
 
     lane_offset/n_lanes select a contiguous lane range — the sharding hook:
@@ -814,15 +779,7 @@ def render_lanes(scene, spp, seed, integrator=None, max_depth=None,
         sample_idx = lanes % jnp.uint32(spp)
     else:
         n = pixel.shape[0]
-    smp = make_sampler(cfg.sampler, seed, pixel, sample_idx, spp)
-
-    jitter = smp.next_2d()
-    aperture = smp.next_2d()
-    px = (pixel % jnp.uint32(w)).astype(jnp.float32)
-    py = (pixel // jnp.uint32(w)).astype(jnp.float32)
-    film_xy = jnp.stack([px, py], axis=-1) + jitter
-    film_uv = film_xy / jnp.asarray([w, h], dtype=jnp.float32)
-    ray0 = sample_ray(scene.sensor, film_uv, aperture, w / h)
+    ray0, film_xy, smp = camera_rays(scene, spp, seed, pixel, sample_idx)
 
     one_ray = {"rays_per_bounce": jnp.asarray([n], jnp.uint32)}
     if integrator == "depth":
@@ -850,7 +807,7 @@ def render_lanes(scene, spp, seed, integrator=None, max_depth=None,
         # moment (for variance estimation); (..., 6) = [L, L^2]
         L, stats = trace_paths(
             scene, ray0, smp, max_depth, cfg.rr_depth, cfg.hide_emitters,
-            ad_mode=ad_mode, coherent0=coherent0,
+            ad_mode=ad_mode,
         )
         return jnp.concatenate([L, L * L], axis=-1), film_xy, stats
 
@@ -861,7 +818,7 @@ def render_lanes(scene, spp, seed, integrator=None, max_depth=None,
     tracer = trace_volpath if use_vol else trace_paths
     L, stats = tracer(
         scene, ray0, smp, max_depth, cfg.rr_depth, cfg.hide_emitters,
-        ad_mode=ad_mode, coherent0=coherent0,
+        ad_mode=ad_mode,
         compact_caps=cfg.compact,
     )
     return L, film_xy, stats
@@ -894,7 +851,7 @@ def render(scene, spp=None, seed=0, integrator=None, max_depth=None,
 
     Renders in spp-chunked passes when pixels*spp exceeds MAX_WAVEFRONT,
     accumulating into the film — the wavefront loop that bounds ray-state
-    HBM no matter the sample count. ad_mode=True selects the
+    memory no matter the sample count. ad_mode=True selects the
     differentiable path-replay configuration (see trace_paths) — the
     `prb` mode of the reference. return_stats=True additionally returns
     {"rays_traced": total rays incl. shadow rays} (float to avoid i32
@@ -924,10 +881,8 @@ def render(scene, spp=None, seed=0, integrator=None, max_depth=None,
     n_chan = 6 if (integrator or cfg.integrator) == "moment" else 3
     box = cfg.rfilter == "box"
 
-    # Lane ordering: 16x16 pixel blocks when the slab tiles evenly (a
-    # 2048-lane Pallas tile then covers a contiguous pixel patch, which is
-    # what makes the sort-free `coherent` primary-bounce kernels fast —
-    # ops/merl_sorted.eval_sorted docstring); row-major otherwise.
+    # Lane ordering: 16x16 pixel blocks when the slab tiles evenly (see
+    # _BLOCK); row-major otherwise.
     import numpy as _np
 
     blocked = (
@@ -960,12 +915,6 @@ def render(scene, spp=None, seed=0, integrator=None, max_depth=None,
             sample_idx=(
                 sidx_local + spp_pass.astype(jnp.uint32) * jnp.uint32(chunk)
             ),
-            # blocked ordering is kept (free, and groups each Pallas tile
-            # onto a pixel patch), but the sort-free coherent kernels stay
-            # OFF: measured on-chip, per-lane emitter sampling randomizes
-            # the NEE half and sorting doubles as dead-lane compaction, so
-            # the sorted path wins even at the primary bounce.
-            coherent0=False,
         )
         rays = jnp.sum(stats["rays_per_bounce"].astype(jnp.float32))
         if box:
@@ -1021,18 +970,20 @@ def render(scene, spp=None, seed=0, integrator=None, max_depth=None,
     return finish(img, wsum, rays)
 
 
-def render_jit(scene, spp=None, seed=0, integrator=None, max_depth=None):
+def render_jit(scene, spp=None, seed=0, integrator=None, max_depth=None,
+               return_stats=False):
     """Jitted render entry (scene is a pytree arg; config/spp are static)."""
     return _render_jit(
         scene, int(spp or scene.config.spp), jnp.uint32(seed),
         integrator or scene.config.integrator,
-        int(max_depth or scene.config.max_depth),
+        int(max_depth or scene.config.max_depth), bool(return_stats),
     )
 
 
 from functools import partial  # noqa: E402
 
 
-@partial(jax.jit, static_argnums=(1, 3, 4))
-def _render_jit(scene, spp, seed, integrator, max_depth):
-    return render(scene, spp, seed, integrator, max_depth)
+@partial(jax.jit, static_argnums=(1, 3, 4, 5))
+def _render_jit(scene, spp, seed, integrator, max_depth, return_stats):
+    return render(scene, spp, seed, integrator, max_depth,
+                  return_stats=return_stats)

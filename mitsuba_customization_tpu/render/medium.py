@@ -1,6 +1,6 @@
 """Participating media: homogeneous + heterogeneous (grid) volumes.
 
-TPU-native counterpart of mitsuba3 src/media/{homogeneous,heterogeneous}.cpp
+Counterpart of mitsuba3 src/media/{homogeneous,heterogeneous}.cpp
 + src/volumes/{gridvolume,constvolume}.cpp (SURVEY.md §2.4 "Media / Phase /
 Volumes"; mitsuba 0.6 src/media/). Design notes:
 
@@ -142,7 +142,7 @@ def _density(table: MediumTable, mid, p):
     homogeneous). mid must be pre-clamped >= 0."""
     w2g = table.world_to_grid[mid]  # (..., 3, 4)
     g = (
-        jnp.einsum("...ij,...j->...i", w2g[..., :3], p) + w2g[..., 3]
+        m.matvec(w2g[..., :3], p) + w2g[..., 3]
     )  # normalized [0,1]^3 as (z, y, x) fractions
     grid = table.grid
     slot = table.grid_slot[mid]
@@ -260,7 +260,7 @@ def sample_interaction(table: MediumTable, mid, ray_o, ray_d, t_max,
     u_ch = _draw(seed, lane, dim_base)
     u_t = _draw(seed, lane, dim_base + _U32(1))
     ch = jnp.minimum((u_ch * 3).astype(jnp.int32), 2)
-    # 3-way channel select without a per-lane gather (TPU-slow op class)
+    # 3-way channel select
     sig_ch = jnp.where(
         ch == 0, sig[..., 0], jnp.where(ch == 1, sig[..., 1], sig[..., 2])
     )

@@ -1,6 +1,6 @@
 """Differentiable scene parameters: traverse / update.
 
-TPU-native counterpart of mitsuba3's mi.traverse + SceneParameters
+Counterpart of mitsuba3's mi.traverse + SceneParameters
 (SURVEY.md §2.5): a flat dict of the scene's differentiable leaves, plus an
 `update` that writes modified leaves back and re-propagates derived state —
 most importantly rebuilding the MERL luminance-sampling CDFs after a table

@@ -1,6 +1,6 @@
 """Interaction and sampling records.
 
-TPU-native counterpart of mitsuba3 include/mitsuba/render/interaction.h and
+Counterpart of mitsuba3 include/mitsuba/render/interaction.h and
 records.h (SURVEY.md §2.3): SurfaceInteraction3f, DirectionSample3f. SoA
 NamedTuples over lane batches — the wavefront ray state of SURVEY.md §2.7 P5.
 """

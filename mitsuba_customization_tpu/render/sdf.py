@@ -8,12 +8,10 @@ masks, exactly the wavefront discipline of the rest of the renderer.
 No BVH participates (the grid IS the acceleration structure), matching
 SURVEY.md §2.4's sdfgrid row.
 
-Per-lane trilinear grid samples use XLA's gather. That is the slow op
-class on TPU (README performance notes), so sdfgrid is a *capability*
-shape: correct everywhere, fast on CPU-class backends and small grids.
-The packet/segment treatment that made meshes fast (ops/clusters.py)
-does not transfer — an SDF step reads a different cell every iteration
-per lane — and is documented as out of scope.
+Per-lane trilinear grid samples use XLA's gather, and every lane steps
+in lock-step until the slowest converges, so sdfgrid is a *capability*
+shape: correct everywhere, fast for small grids. Its speed on the GPU is
+not measured.
 """
 
 from __future__ import annotations
@@ -106,15 +104,15 @@ def normal(sdf: SDFGrid, p_local):
 
     g_local = jnp.stack([d(0), d(1), d(2)], axis=-1)
     # normals transform by the inverse-transpose of to_world
-    g_world = g_local @ sdf.to_local[:3, :3]
+    g_world = m.vecmat(g_local, sdf.to_local[:3, :3])
     return m.normalize(g_world + 1e-20)
 
 
 def intersect(sdf: SDFGrid, ray: Ray):
     """Sphere-trace nearest hit. Returns (t_world, hit, p_local)."""
     rot = sdf.to_local[:3, :3]
-    o_l = ray.o @ rot.T + sdf.to_local[:3, 3]
-    d_l = ray.d @ rot.T  # NOT normalized: t stays in world units
+    o_l = m.matvec(rot, ray.o) + sdf.to_local[:3, 3]
+    d_l = m.matvec(rot, ray.d)  # NOT normalized: t stays in world units
 
     # clip to the local unit cube
     inv = 1.0 / jnp.where(jnp.abs(d_l) < 1e-12, 1e-12, d_l)

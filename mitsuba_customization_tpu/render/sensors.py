@@ -1,7 +1,7 @@
 """Sensors: perspective, thinlens, orthographic, radiancemeter,
 irradiancemeter, distant, batch.
 
-TPU-native counterpart of mitsuba3 src/sensors/ (SURVEY.md §2.4, starred:
+Counterpart of mitsuba3 src/sensors/ (SURVEY.md §2.4, starred:
 `perspective`). A sensor maps film positions (+ aperture samples) to
 primary rays — Sensor::sample_ray_differential in SURVEY.md §3.1.
 Measurement sensors follow mitsuba3 semantics: `radiancemeter` shoots one
@@ -119,8 +119,6 @@ def sample_ray(sensor: Sensor, film_uv, aperture_uv, aspect):
     per-lane parameter arrays (every formula broadcasts).
     """
     if sensor.child_types is not None:
-        from mitsuba_customization_tpu.ops.onehot import gather_tree
-
         b = sensor.child_types.shape[0]
         xi = jnp.clip(
             (film_uv[..., 0] * b).astype(jnp.int32), 0, b - 1
@@ -138,9 +136,7 @@ def sample_ray(sensor: Sensor, film_uv, aperture_uv, aspect):
         )
         # gather each lane's child parameters (child_types=None excluded
         # from the tree so the result is a plain single-sensor pytree)
-        gathered = gather_tree(
-            tuple(f for f in fields if f is not None), xi
-        )
+        gathered = [f[xi] for f in fields if f is not None]
         per_lane = Sensor(*gathered, child_types=None)
         uv2 = jnp.stack([local_x, film_uv[..., 1]], axis=-1)
         return sample_ray(per_lane, uv2, aperture_uv, aspect / b)
@@ -219,9 +215,9 @@ def sample_ray(sensor: Sensor, film_uv, aperture_uv, aspect):
 
     rot = sensor.to_world[..., :3, :3]
     trans = sensor.to_world[..., :3, 3]
-    # (rot @ v) written to support both a shared (3, 3) rotation and a
-    # per-lane (..., 3, 3) one (batch sensors)
-    o_w = (rot @ o_cam[..., None])[..., 0] + trans
-    d_w = m.normalize((rot @ d_cam[..., None])[..., 0])
+    # rot @ v written elementwise (exact f32, no matrix unit) for both a
+    # shared (3, 3) rotation and a per-lane (..., 3, 3) one (batch sensors)
+    o_w = jnp.sum(rot * o_cam[..., None, :], axis=-1) + trans
+    d_w = m.normalize(jnp.sum(rot * d_cam[..., None, :], axis=-1))
     o_w = o_w + d_w * jnp.asarray(sensor.near_clip)[..., None]
     return Ray.make(o_w, d_w)

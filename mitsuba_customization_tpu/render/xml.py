@@ -1,6 +1,6 @@
 """Mitsuba-XML scene loader: scene.xml -> load_dict schema -> Scene.
 
-TPU-native counterpart of mitsuba3 src/core/xml.cpp (xml::load_file —
+Counterpart of mitsuba3 src/core/xml.cpp (xml::load_file —
 SURVEY.md §2.3) and the 0.6 SceneHandler: parses the Mitsuba scene XML
 dialect (the format of the reference author's gitignored scene/ corpus,
 SURVEY.md §2.1), including:

@@ -1,7 +1,7 @@
 """Checkpoint / resume for optimization loops.
 
 The reference has essentially no checkpointing (SURVEY.md §5.4: partial
-film snapshots only, no resume); the TPU build checkpoints
+film snapshots only, no resume); this build checkpoints
 (BRDF table + all optimized params, optimizer state, RNG seed, iteration)
 every N steps via orbax — "trivially better than reference" per the survey.
 Falls back to a plain .npz container when orbax is unavailable.

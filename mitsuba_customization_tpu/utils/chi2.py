@@ -1,6 +1,6 @@
 """Chi-square goodness-of-fit harness for sampling routines.
 
-TPU-native counterpart of mitsuba3 python/python/chi2.py (ChiSquareTest +
+Counterpart of mitsuba3 python/python/chi2.py (ChiSquareTest +
 SphericalDomain/PlanarDomain + BSDFAdapter) — SURVEY.md §2.5/§4.1. This is
 the gate every warp and every BSDF sampler (including the MERL
 luminance-weighted tabulated sampler) must pass: a histogram of sample()

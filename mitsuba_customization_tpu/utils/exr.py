@@ -1,6 +1,6 @@
 """Minimal OpenEXR 2.0 reader/writer (pure Python, no OpenEXR library).
 
-TPU-native replacement for the reference's EXR path through
+Replacement for the reference's EXR path through
 mitsuba3 src/core/bitmap.cpp + OpenEXR (SURVEY.md §2.3 "Bitmap / image
 I/O"): EXR is Mitsuba's native HDR interchange format, so golden images
 and film output must round-trip it without the C library (not installable

@@ -1,12 +1,15 @@
 """Image IO: EXR/PFM/PNG/NPY output, bitmap reading.
 
-TPU-native counterpart of mitsuba3 src/core/bitmap.cpp (SURVEY.md §2.3).
-EXR (the reference's native HDR format) is handled by the pure-Python
-reader/writer in utils/exr.py (no OpenEXR C library in this environment);
-8-bit output goes through PIL with sRGB tonemapping.
+Counterpart of mitsuba3 src/core/bitmap.cpp (SURVEY.md §2.3). EXR (the
+reference's native HDR format) is handled by the pure-Python reader/writer
+in utils/exr.py; 8-bit sRGB PNG output is encoded here with zlib, so
+neither needs a third-party package.
 """
 
 from __future__ import annotations
+
+import struct
+import zlib
 
 import numpy as np
 
@@ -32,13 +35,35 @@ def write_image(path, image):
 
 def write_png(path, image, tonemap=True):
     """Write an (H, W, 3) linear-RGB float image as 8-bit sRGB PNG."""
-    from PIL import Image
-
     img = np.asarray(image, dtype=np.float32)
     if tonemap:
         img = np.asarray(linear_to_srgb(np.clip(img, 0.0, 1.0)))
     img8 = (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
-    Image.fromarray(img8).save(path)
+    with open(path, "wb") as f:
+        f.write(encode_png(img8))
+
+
+def encode_png(img8):
+    """(H, W, 3) or (H, W) uint8 -> PNG bytes (8-bit, no filtering)."""
+    img8 = np.ascontiguousarray(img8, dtype=np.uint8)
+    h, w = img8.shape[:2]
+    color = 2 if img8.ndim == 3 else 0  # truecolor / grayscale
+    rows = img8.reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+
+    def chunk(tag, data):
+        body = tag + data
+        return (
+            struct.pack(">I", len(data)) + body
+            + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF)
+        )
+
+    header = struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)
+    return (
+        b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+        + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+        + chunk(b"IEND", b"")
+    )
 
 
 def write_npy(path, image):
@@ -65,7 +90,13 @@ def read_image(path):
         if img.ndim == 2:
             img = np.repeat(img[..., None], 3, axis=-1)
         return img.astype(np.float32)
-    from PIL import Image
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            f"reading {path} needs the Pillow package; .exr, .pfm and .npy "
+            "images read without it"
+        ) from e
 
     img = np.asarray(Image.open(path).convert("RGB"), dtype=np.float32) / 255.0
     # PNG/JPG are sRGB-encoded: linearize.

@@ -1,6 +1,6 @@
 """Logging + render statistics.
 
-TPU-native counterpart of mitsuba3 src/core/logger.cpp (severity levels,
+Counterpart of mitsuba3 src/core/logger.cpp (severity levels,
 appenders — SURVEY.md §5.5) and the 0.6 StatsCounter/Statistics singleton
 (SURVEY.md §5.1): a std-logging logger plus a process-global stats registry
 printed after renders (rays traced, kernel timings), and a JSONL metrics

@@ -1,6 +1,6 @@
 """Wavefront OBJ mesh loader.
 
-TPU-native counterpart of mitsuba3 src/shapes/obj.cpp (SURVEY.md §2.4,
+Counterpart of mitsuba3 src/shapes/obj.cpp (SURVEY.md §2.4,
 starred: `obj` shape needed by the matpreview-class scenes). Pure-Python
 reference parser; native/ supplies a faster C++ path for large meshes with
 the same return contract: (vertices (V,3) f32, faces (F,3) i32,

@@ -1,6 +1,6 @@
 """PLY mesh loader (ascii + binary_little_endian).
 
-TPU-native counterpart of mitsuba3 src/shapes/ply.cpp (SURVEY.md §2.4).
+Counterpart of mitsuba3 src/shapes/ply.cpp (SURVEY.md §2.4).
 Returns the same contract as utils.obj.read_obj: (vertices, faces,
 normals-or-None, uvs-or-None).
 """

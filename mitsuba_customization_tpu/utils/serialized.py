@@ -1,6 +1,6 @@
 """Mitsuba `.serialized` mesh loader (+ writer for round-trip tests).
 
-TPU-native counterpart of mitsuba3 src/shapes/serialized.cpp (SURVEY.md
+Counterpart of mitsuba3 src/shapes/serialized.cpp (SURVEY.md
 §2.4 shapes row). File layout (public format, shared by Mitsuba 0.4-3):
 
     uint16 LE magic 0x041C

@@ -1,6 +1,6 @@
 // Native runtime components for mitsuba_customization_tpu.
 //
-// TPU-native counterpart of the reference's C++ core runtime (SURVEY.md
+// Counterpart of the reference's C++ core runtime (SURVEY.md
 // §2.3: src/core Stream/Bitmap loaders; §2.3 L3: accel build). The JAX/XLA
 // side owns all device compute; this library owns the host-side hot paths:
 //

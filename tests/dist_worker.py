@@ -1,6 +1,6 @@
 """Worker process for tests/test_distributed.py (NOT collected by pytest).
 
-2-process jax.distributed loopback — the TPU-native analogue of running
+2-process jax.distributed loopback — the Analogue of running
 mtssrv on localhost and pointing the 0.6 scheduler at it (SURVEY.md §4.2).
 Must initialize the distributed runtime BEFORE importing the package (see
 parallel/mesh.initialize_distributed docstring).

@@ -318,7 +318,6 @@ def test_bsdf_table_dispatch(merl_brdf):
             ),
             bsdf_mod.TABULATED: tabulated.TabulatedBRDF(
                 table=merl_brdf.table[None],
-                corners=merl_brdf.corners[None],
                 sampling=jax.tree_util.tree_map(
                     lambda a: a[None], merl_brdf.sampling
                 ),

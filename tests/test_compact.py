@@ -81,19 +81,20 @@ def test_forced_thinning_unbiased():
 
 
 @pytest.mark.slow  # nightly (-m ""): heavy compile/render; a faster sibling test keeps default coverage
-def test_spatial_resort_matches_plain_matpreview():
-    """Cluster-intersector scenes re-sort survivors by (octant, Morton)
-    each bounce; the final tag unsort must make the image identical to
-    the uncompacted render (same seeds, same estimator)."""
+def test_compaction_matpreview_kernel_matches_plain():
+    """Compaction on the mesh scene through the traversal kernel: the
+    final tag unsort must give the uncompacted image (same seeds, same
+    estimator)."""
     import dataclasses
+    import os
     import sys
 
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
     from __graft_entry__ import _matpreview_scene
     from mitsuba_customization_tpu.render.integrator import render
 
-    scene = _matpreview_scene(res=24, spp=4, depth=4, n_sub=2)
-    assert scene.config.intersector == "cluster"
+    scene = _matpreview_scene(res=24, spp=4, depth=4, n_sub=2,
+                              intersector="kernel")
     img_plain = np.asarray(render(scene, spp=4, seed=1))
     sc2 = dataclasses.replace(
         scene,
@@ -102,8 +103,7 @@ def test_spatial_resort_matches_plain_matpreview():
         ),
     )
     img_sorted = np.asarray(render(sc2, spp=4, seed=1))
-    # thinning below the live fraction is stochastic but unbiased; with
-    # generous caps only the re-sort permutation differs -> tight match
+    # thinning below the live fraction is stochastic but unbiased
     assert np.isfinite(img_sorted).all()
     assert abs(img_sorted.mean() - img_plain.mean()) < 0.05 * max(
         img_plain.mean(), 1e-6

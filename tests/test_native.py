@@ -9,9 +9,13 @@ from mitsuba_customization_tpu import native
 
 from fixtures import synthetic_table_file_units
 
-pytestmark = pytest.mark.skipif(
-    not native.available(), reason="native library not built"
-)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def native_library():
+    """Builds the library from native/mct_native.cpp (g++) on first use."""
+    if not native.available():
+        pytest.skip("native library unavailable (no g++)")
 
 
 def test_native_merl_matches_python(tmp_path):

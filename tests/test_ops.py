@@ -1,25 +1,28 @@
-"""Tests for the sorted-segment Pallas kernels (ops/) via interpret mode.
+"""Plain-JAX table paths against independent numpy references.
 
-Round-2 verdict: the production TPU eval path had zero test coverage
-because the suite pins CPU where the packed path runs. These tests force
-the sorted kernels through Pallas interpret mode on CPU, so the code the
-TPU actually executes — segment walk, slab DMAs, lane-bank gathers,
-fixed-point fraction packing, the custom_vjp — is exercised in CI.
+The MERL trilinear eval (models/tabulated.eval_f), the Marginal2D CDF
+inversion (core/distr.py), the fused per-bounce tabulated shading
+(tabulated.bounce_shade) and per-lane row fetches, plus the small
+platform plumbing around them: the load-time intersector choice, the
+compile-cache location and chip_smoke.py's refusal to run without a GPU.
 """
+
+import os
+import shutil
+import subprocess
+import sys
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from mitsuba_customization_tpu.core.distr import (
-    Marginal2D,
-    _invert_cdf,
-    _select_at,
-)
+from mitsuba_customization_tpu.core.distr import DiscreteDistribution, Marginal2D
 from mitsuba_customization_tpu.models import tabulated as tb
-from mitsuba_customization_tpu.ops import marginal_sorted as msamp
-from mitsuba_customization_tpu.ops import merl_sorted as ms
+
+from reference_renderer import merl_eval_trilinear_reference
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _unit(rng, n, hemi=False):
@@ -28,416 +31,319 @@ def _unit(rng, n, hemi=False):
     if hemi:
         v[:, 2] = np.abs(v[:, 2]) + 1e-3
         v /= np.linalg.norm(v, axis=-1, keepdims=True)
-    return jnp.asarray(v)
+    return v
+
+
+def _table(rng, shape=(16, 16, 32, 3), smooth=False):
+    t = rng.random(shape).astype(np.float32)
+    if smooth:
+        for ax in range(-4, -1):
+            t = (t + np.roll(t, 1, axis=ax)) / 2
+    return t
+
+
+def _reference(table, wi, wo, slot=None):
+    """numpy float64 trilinear eval, per material slot."""
+    if slot is None:
+        return merl_eval_trilinear_reference(
+            table.astype(np.float64), wi.astype(np.float64),
+            wo.astype(np.float64),
+        )
+    out = np.zeros(wi.shape[:-1] + (3,))
+    for s in range(table.shape[0]):
+        m = slot == s
+        out[m] = _reference(table[s], wi[m], wo[m])
+    return out
+
+
+def _assert_close_to_reference(got, ref):
+    # f32 half/difference angles lose digits where the half vector nears
+    # the normal (arccos of ~1); everywhere else agreement is ~1e-6.
+    rel = np.abs(np.asarray(got) - ref) / np.maximum(np.abs(ref), 1e-3)
+    assert np.quantile(rel, 0.99) < 1e-4, np.quantile(rel, 0.99)
+    assert rel.max() < 5e-3, rel.max()
+
+
+def _params(table):
+    return tb.TabulatedBRDF(table=jnp.asarray(table), sampling=None)
 
 
 # ---------------------------------------------------------------------------
-# merl_sorted: exact trilinear eval
+# MERL trilinear eval
 # ---------------------------------------------------------------------------
 
 
-class TestEvalSorted:
-    def _table(self, rng, shape=(16, 16, 32, 3), smooth=False):
-        t = rng.random(shape).astype(np.float32)
-        if smooth:
-            for ax in range(3):
-                t = (t + np.roll(t, 1, axis=ax)) / 2
-        return jnp.asarray(t)
-
-    def test_matches_eval_raw_rough(self, rng):
-        """Rough random table: worst case for the 16-bit fraction packing.
-
-        The on-chip bound the round-2 judge measured was ~7e-3 relative on
-        a fully random table; assert the same class of bound here.
-        """
-        table = self._table(rng)
-        n = 3000
-        wi, wo = _unit(rng, n, True), _unit(rng, n, True)
-        out = ms.eval_sorted(table, wi, wo, interpret=True)
-        ref = tb.eval_raw(table, wi, wo)
-        denom = np.maximum(np.asarray(ref), 1e-3)
-        rel = np.abs(np.asarray(out) - np.asarray(ref)) / denom
-        assert rel.max() < 2e-2, rel.max()
-        assert rel.mean() < 2e-4
-
-    def test_matches_eval_raw_smooth(self, rng):
-        table = self._table(rng, smooth=True)
-        n = 2000
-        wi, wo = _unit(rng, n, True), _unit(rng, n, True)
-        out = ms.eval_sorted(table, wi, wo, interpret=True)
-        ref = tb.eval_raw(table, wi, wo)
-        np.testing.assert_allclose(out, ref, rtol=2e-3, atol=2e-4)
-
-    def test_masked_lanes_zero(self, rng):
-        table = self._table(rng)
-        n = 1000
-        wi, wo = _unit(rng, n, True), _unit(rng, n, True)
-        mask = jnp.asarray(rng.random(n) > 0.5)
-        out = ms.eval_sorted(table, wi, wo, mask=mask, interpret=True)
-        assert float(jnp.abs(out[~mask]).max()) == 0.0
-        ref = ms.eval_sorted(table, wi, wo, interpret=True)
-        np.testing.assert_allclose(out[mask], ref[mask], rtol=1e-6)
-
-    def test_multi_material_slots(self, rng):
-        tables = jnp.asarray(rng.random((3, 16, 16, 32, 3)), jnp.float32)
-        n = 2000
-        wi, wo = _unit(rng, n, True), _unit(rng, n, True)
-        slot = jnp.asarray(rng.integers(0, 3, n), jnp.int32)
-        out = ms.eval_sorted(tables, wi, wo, slot=slot, interpret=True)
-        ref = tb.eval_raw(tables, wi, wo, slot=slot)
-        denom = np.maximum(np.asarray(ref), 1e-3)
-        rel = np.abs(np.asarray(out) - np.asarray(ref)) / denom
-        assert rel.max() < 2e-2
-
-    def test_non_multiple_of_tile(self, rng):
-        table = self._table(rng)
-        for n in (7, ms.TILE + 1):
-            wi, wo = _unit(rng, n, True), _unit(rng, n, True)
-            out = ms.eval_sorted(table, wi, wo, interpret=True)
-            assert out.shape == (n, 3)
-            ref = tb.eval_raw(table, wi, wo)
-            np.testing.assert_allclose(out, ref, rtol=2e-2, atol=1e-3)
-
-    def test_below_horizon_zero(self, rng):
-        table = self._table(rng)
-        wi = _unit(rng, 500, True)
-        wo = _unit(rng, 500)  # both hemispheres
-        out = ms.eval_sorted(table, wi, wo, interpret=True)
-        below = np.asarray(wo[:, 2]) <= 0.0
-        assert float(jnp.abs(out[below]).max()) == 0.0
-
-    def test_grad_matches_eval_raw(self, rng):
-        """eval_trilinear custom_vjp table gradient == jax.grad(eval_raw)."""
-        table = self._table(rng, shape=(8, 8, 16, 3))
-        n = 200
-        wi, wo = _unit(rng, n, True), _unit(rng, n, True)
-        cot = jnp.asarray(rng.random((n, 3)), jnp.float32)
-
-        def loss_sorted(t):
-            perm = ms.pack_perm(t[None])
-            out = ms.eval_trilinear(t[None], perm, wi, wo,
-                                    jnp.zeros(n, jnp.int32), None, True)
-            return jnp.sum(out * cot)
-
-        def loss_raw(t):
-            return jnp.sum(tb.eval_raw(t, wi, wo) * cot)
-
-        g_sorted = jax.grad(loss_sorted)(table)
-        g_raw = jax.grad(loss_raw)(table)
-        np.testing.assert_allclose(g_sorted, g_raw, rtol=1e-5, atol=1e-6)
-
-
-# ---------------------------------------------------------------------------
-# marginal_sorted: conditional-CDF inversion + cell masses
-# ---------------------------------------------------------------------------
-
-
-class TestCondSamplePdf:
-    def _setup(self, rng, n_sl=7, h=32, w=64, n=3000):
-        weights = jnp.asarray(rng.random((n_sl, h, w)) ** 2 + 1e-4,
-                              jnp.float32)
-        m2d = Marginal2D.build(weights)
-        data = dict(
-            key=jnp.asarray(rng.integers(0, n_sl, n), jnp.int32),
-            u_col=jnp.asarray(rng.random(n), jnp.float32),
-            r_own=jnp.asarray(rng.integers(0, h, n), jnp.int32),
-            r_nee=jnp.asarray(rng.integers(0, h, n), jnp.int32),
-            c_nee=jnp.asarray(rng.integers(0, w, n), jnp.int32),
-            r_cos=jnp.asarray(rng.integers(0, h, n), jnp.int32),
-            c_cos=jnp.asarray(rng.integers(0, w, n), jnp.int32),
-            valid=jnp.asarray(rng.random(n) > 0.2),
+def _eval_case(case, rng):
+    if case in ("rough", "smooth"):
+        table = _table(rng, smooth=case == "smooth")
+        wi, wo = _unit(rng, 3000, True), _unit(rng, 3000, True)
+        got = tb.eval_f(_params(table), jnp.asarray(wi), jnp.asarray(wo))
+        _assert_close_to_reference(got, _reference(table, wi, wo))
+    elif case == "masked":
+        table = _table(rng)
+        wi, wo = _unit(rng, 1000, True), _unit(rng, 1000, True)
+        mask = rng.random(1000) > 0.5
+        got = np.asarray(tb.eval_f(_params(table), jnp.asarray(wi),
+                                   jnp.asarray(wo), mask=jnp.asarray(mask)))
+        assert np.abs(got[~mask]).max() == 0.0
+        _assert_close_to_reference(
+            got[mask], _reference(table, wi[mask], wo[mask])
         )
-        return m2d, data
-
-    def _reference(self, m2d, d, w):
-        cond_rows = m2d.cdf_cond[d["key"], d["r_own"]]
-        col, lo, mass = _invert_cdf(cond_rows, d["u_col"])
-        dx = jnp.clip(
-            (d["u_col"] - lo) / jnp.maximum(mass, 1e-20), 0.0, 1.0 - 1e-7
-        )
-        x = (col.astype(jnp.float32) + dx) / w
-
-        def cell_mass(rr, cc):
-            rows = m2d.cdf_cond[d["key"], rr]
-            hi = _select_at(rows, cc)
-            lo_ = _select_at(rows, jnp.maximum(cc - 1, 0)) * (cc > 0)
-            return hi - lo_
-
-        return x, mass, cell_mass(d["r_nee"], d["c_nee"]), cell_mass(
-            d["r_cos"], d["c_cos"]
-        )
-
-    def test_matches_marginal2d(self, rng):
-        h, w = 32, 64
-        m2d, d = self._setup(rng, h=h, w=w)
-        condT = msamp.pack_condT(m2d.cdf_cond)
-        out = msamp.cond_sample_pdf(
-            condT, h, d["key"], d["u_col"], d["r_own"], d["r_nee"],
-            d["c_nee"], d["r_cos"], d["c_cos"], d["valid"], interpret=True,
-        )
-        ref = self._reference(m2d, d, w)
-        v = np.asarray(d["valid"])
-        for got, want in zip(out, ref):
-            np.testing.assert_allclose(
-                np.asarray(got)[v], np.asarray(want)[v], rtol=1e-5, atol=1e-7
+    elif case == "multi_material":
+        tables = _table(rng, shape=(3, 16, 16, 32, 3))
+        wi, wo = _unit(rng, 2000, True), _unit(rng, 2000, True)
+        slot = rng.integers(0, 3, 2000).astype(np.int32)
+        got = tb.eval_f(_params(tables), jnp.asarray(wi), jnp.asarray(wo),
+                        slot=jnp.asarray(slot))
+        _assert_close_to_reference(got, _reference(tables, wi, wo, slot))
+    elif case == "odd_lanes":
+        table = _table(rng, smooth=True)
+        for shape in ((7,), (3, 683)):
+            n = int(np.prod(shape))
+            wi = _unit(rng, n, True).reshape(shape + (3,))
+            wo = _unit(rng, n, True).reshape(shape + (3,))
+            got = tb.eval_f(_params(table), jnp.asarray(wi), jnp.asarray(wo))
+            assert got.shape == shape + (3,)
+            _assert_close_to_reference(
+                np.asarray(got).reshape(-1, 3),
+                _reference(table, wi.reshape(-1, 3), wo.reshape(-1, 3)),
             )
-        for got in out:
-            assert float(jnp.abs(got[~d["valid"]]).max()) == 0.0
+    elif case == "below_horizon":
+        table = _table(rng)
+        wi, wo = _unit(rng, 500, True), _unit(rng, 500)
+        got = np.asarray(tb.eval_f(_params(table), jnp.asarray(wi),
+                                   jnp.asarray(wo)))
+        below = wo[:, 2] <= 0.0
+        assert below.any() and np.abs(got[below]).max() == 0.0
+    elif case == "gradient":
+        # eval is linear in the table, so <d loss / d table, T2> must equal
+        # the loss of any other table T2 — checked through the reference.
+        table = _table(rng, shape=(8, 8, 16, 3))
+        wi, wo = _unit(rng, 200, True), _unit(rng, 200, True)
+        cot = rng.random((200, 3)).astype(np.float32)
 
-    def test_u_edges(self, rng):
-        """u at 0.0 and ~1.0 stays in range (matches _invert_cdf clamps)."""
-        h, w = 16, 32
-        m2d, d = self._setup(rng, n_sl=3, h=h, w=w, n=512)
-        d["u_col"] = jnp.asarray(
-            np.where(np.arange(512) % 2, 0.0, 1.0 - 1e-7), jnp.float32
-        )
-        condT = msamp.pack_condT(m2d.cdf_cond)
-        out = msamp.cond_sample_pdf(
-            condT, h, d["key"], d["u_col"], d["r_own"], d["r_nee"],
-            d["c_nee"], d["r_cos"], d["c_cos"], d["valid"], interpret=True,
-        )
-        ref = self._reference(m2d, d, w)
-        v = np.asarray(d["valid"])
-        for got, want in zip(out, ref):
-            np.testing.assert_allclose(
-                np.asarray(got)[v], np.asarray(want)[v], rtol=1e-5, atol=1e-7
-            )
-        # (col + dx)/W can round to exactly 1.0 in f32 — same as the
-        # Marginal2D baseline; consumers treat x periodically.
-        assert float(out[0].min()) >= 0.0 and float(out[0].max()) <= 1.0
-
-
-# ---------------------------------------------------------------------------
-# Production TPU configuration end-to-end (sorted kernels via interpret)
-# ---------------------------------------------------------------------------
-
-
-@pytest.fixture
-def sorted_paths():
-    """Force the production TPU kernel paths through interpret mode."""
-    ep, sp, ip = tb.EVAL_PATH, tb.SAMPLE_PATH, tb.INTERPRET
-    tb.EVAL_PATH, tb.SAMPLE_PATH, tb.INTERPRET = "sorted", "sorted", True
-    yield
-    tb.EVAL_PATH, tb.SAMPLE_PATH, tb.INTERPRET = ep, sp, ip
-
-
-def _small_table(rng, shape=(16, 16, 32, 3)):
-    t = rng.random(shape).astype(np.float32) * 0.5 + 0.05
-    for ax in range(3):
-        t = (t + np.roll(t, 1, axis=ax)) / 2
-    return jnp.asarray(t)
-
-
-class TestBounceShadeFused:
-    """tabulated.bounce_shade (sorted kernels) vs the one-hot composition."""
-
-    def _run(self, rng, path):
-        table = _small_table(rng)
-        params = tb.TabulatedBRDF.build(table)
-        n = 1500
-        wi = _unit(rng, n, True)
-        wo_nee = _unit(rng, n, True)
-        sample2 = jnp.asarray(rng.random((n, 2)), jnp.float32)
-        sample1 = jnp.asarray(rng.random(n), jnp.float32)
-        slot = jnp.zeros(n, jnp.int32)
-        mask = jnp.asarray(rng.random(n) > 0.3)
-        old = tb.SAMPLE_PATH
-        tb.SAMPLE_PATH = path
-        try:
-            out = tb.bounce_shade(
-                params, wi, wo_nee, sample2, sample1, slot=slot,
-                mask=mask, mask_nee=mask,
-            )
-        finally:
-            tb.SAMPLE_PATH = old
-        return out, (params, wi, wo_nee, sample2, sample1, slot, mask)
-
-    def test_sorted_matches_onehot(self, sorted_paths):
-        got, aux = self._run(np.random.default_rng(0), "sorted")
-        ref, _ = self._run(np.random.default_rng(0), "onehot")
-        mask = np.asarray(aux[-1])  # dispatch discards masked-out lanes
-        names = ["f_nee", "pdf_nee", "wo", "pdf_s", "weight", "is_delta"]
-        for name, a, b in zip(names, got, ref):
-            np.testing.assert_allclose(
-                np.asarray(a)[mask], np.asarray(b)[mask], rtol=2e-2,
-                atol=2e-3, err_msg=name,
+        def loss(t):
+            return jnp.sum(
+                tb.eval_f(_params(t), jnp.asarray(wi), jnp.asarray(wo)) * cot
             )
 
-    def test_onehot_matches_legacy_calls(self, rng):
-        """bounce_shade == {eval, pdf, sample} composed, exactly."""
-        (f_nee, pdf_nee, wo, pdf_s, weight, _), (
-            params, wi, wo_nee, sample2, sample1, slot, mask
-        ) = self._run(rng, "onehot")
-        f_ref = tb.eval(params, wi, wo_nee, slot=slot, mask=mask)
-        p_ref = tb.pdf(params, wi, wo_nee, slot=slot, mask=mask)
-        wo_ref, p_s_ref, w_ref, _ = tb.sample(
-            params, wi, sample2, sample1, slot=slot, mask=mask
-        )
-        v = np.asarray(mask)
-        np.testing.assert_allclose(
-            np.asarray(f_nee)[v], np.asarray(f_ref)[v], rtol=1e-5, atol=1e-7
-        )
-        np.testing.assert_allclose(
-            np.asarray(pdf_nee)[v], np.asarray(p_ref)[v], rtol=1e-5,
-            atol=1e-7,
-        )
-        np.testing.assert_allclose(
-            np.asarray(wo)[v], np.asarray(wo_ref)[v], rtol=1e-5, atol=1e-6
-        )
-        np.testing.assert_allclose(
-            np.asarray(pdf_s)[v], np.asarray(p_s_ref)[v], rtol=1e-5,
-            atol=1e-7,
-        )
-        np.testing.assert_allclose(
-            np.asarray(weight)[v], np.asarray(w_ref)[v], rtol=1e-5, atol=1e-6
-        )
+        g = np.asarray(jax.grad(loss)(jnp.asarray(table)), np.float64)
+        t2 = _table(rng, shape=(8, 8, 16, 3))
+        want = np.sum(_reference(t2, wi, wo) * cot)
+        assert abs(np.sum(g * t2) - want) < 1e-4 * abs(want)
+    else:
+        raise ValueError(case)
 
 
-@pytest.mark.slow
-class TestSortedRenderEndToEnd:
-    def test_render_sorted_vs_packed(self, rng, sorted_paths):
-        """Full flagship render through the production TPU kernel paths."""
-        import sys
-
-        sys.path.insert(0, "/root/repo")
-        from __graft_entry__ import _flagship_scene
-        from mitsuba_customization_tpu.render.integrator import render
-
-        scene = _flagship_scene(res=24, spp=4, depth=3)
-        img_sorted = np.asarray(render(scene, spp=4, seed=0))
-
-        tb.EVAL_PATH, tb.SAMPLE_PATH = "packed", "onehot"
-        scene2 = _flagship_scene(res=24, spp=4, depth=3)
-        img_ref = np.asarray(render(scene2, spp=4, seed=0))
-
-        assert np.isfinite(img_sorted).all()
-        # identical sample streams; only kernel arithmetic differs (16-bit
-        # fraction packing in the sorted eval)
-        np.testing.assert_allclose(img_sorted, img_ref, rtol=0.05, atol=5e-3)
-
-    def test_grad_sorted_path(self, rng, sorted_paths):
-        """Table gradients through the full sorted ad_mode render."""
-        import sys
-
-        sys.path.insert(0, "/root/repo")
-        from __graft_entry__ import _flagship_scene
-        from mitsuba_customization_tpu.render import params as params_mod
-        from mitsuba_customization_tpu.render.integrator import render
-
-        scene = _flagship_scene(res=16, spp=2, depth=2)
-        full = params_mod.traverse(scene)
-        key = "bsdf.tabulated.table"
-
-        def loss(tbl):
-            sc = params_mod.update(scene, {key: tbl})
-            img = render(sc, spp=2, seed=0, ad_mode=True)
-            return jnp.mean(img ** 2)
-
-        g = jax.grad(loss)(full[key])
-        g = np.asarray(g)
-        assert np.isfinite(g).all()
-        assert np.abs(g).max() > 0.0
+@pytest.mark.parametrize("case", [
+    "rough", "smooth", "masked", "multi_material", "odd_lanes",
+    "below_horizon", "gradient",
+])
+def test_eval_matches_reference(case, rng):
+    _eval_case(case, rng)
 
 
 # ---------------------------------------------------------------------------
-# Round-4 sort plumbing: forced chunking, packed key+lane operand, coherent
-# (sort-free) mode — round-3 ADVICE item 1 + round-4 sort-tax work
+# Marginal2D: CDF inversion against numpy
 # ---------------------------------------------------------------------------
 
 
-class TestSortPlumbing:
-    def _inputs(self, rng, n=40000, n_mat=3, shape=(16, 16, 32, 3)):
-        tables = jnp.asarray(
-            rng.random((n_mat,) + shape), jnp.float32
-        )
-        wi, wo = _unit(rng, n, True), _unit(rng, n, True)
-        slot = jnp.asarray(rng.integers(0, n_mat, n), jnp.int32)
-        mask = jnp.asarray(rng.random(n) > 0.2)
-        return tables, wi, wo, slot, mask
-
-    def test_forced_chunking_matches_global(self, rng):
-        """SORT_CHUNK small enough that 40000 lanes chunk >= 8 ways."""
-        tables, wi, wo, slot, mask = self._inputs(rng)
-        ref = ms.eval_sorted(tables, wi, wo, slot=slot, mask=mask,
-                             interpret=True)
-        old = ms.SORT_CHUNK
-        ms.SORT_CHUNK = ms.TILE  # 40960 pad -> 20 chunks of 2048
-        try:
-            npad = ms._round_up(40000, ms.TILE)
-            assert ms._n_chunks(npad) >= 8, ms._n_chunks(npad)
-            got = ms.eval_sorted(tables, wi, wo, slot=slot, mask=mask,
-                                 interpret=True)
-        finally:
-            ms.SORT_CHUNK = old
-        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-7)
-
-    def test_packed_vs_fallback_operands(self, rng):
-        """The packed (key<<bits|lane) sort path == the 2-operand path."""
-        tables, wi, wo, slot, mask = self._inputs(rng)
-        ref = ms.eval_sorted(tables, wi, wo, slot=slot, mask=mask,
-                             interpret=True)
-        old = ms._pack_spec
-        ms._pack_spec = lambda *a: None  # force the unpacked fallback
-        try:
-            got = ms.eval_sorted(tables, wi, wo, slot=slot, mask=mask,
-                                 interpret=True)
-        finally:
-            ms._pack_spec = old
-        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-7)
-
-    def test_coherent_matches_sorted(self, rng):
-        tables, wi, wo, slot, mask = self._inputs(rng, n=5000)
-        ref = ms.eval_sorted(tables, wi, wo, slot=slot, mask=mask,
-                             interpret=True)
-        got = ms.eval_sorted(tables, wi, wo, slot=slot, mask=mask,
-                             interpret=True, coherent=True)
-        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-7)
-
-    def test_cond_sample_pdf_chunked_and_coherent(self, rng):
-        h, w, n_sl, n = 32, 64, 5, 40000
-        weights = jnp.asarray(rng.random((n_sl, h, w)) ** 2 + 1e-4,
-                              jnp.float32)
-        m2d = Marginal2D.build(weights)
-        condT = msamp.pack_condT(m2d.cdf_cond)
-        args = (
-            jnp.asarray(rng.integers(0, n_sl, n), jnp.int32),
-            jnp.asarray(rng.random(n), jnp.float32),
-            jnp.asarray(rng.integers(0, h, n), jnp.int32),
-            jnp.asarray(rng.integers(0, h, n), jnp.int32),
-            jnp.asarray(rng.integers(0, w, n), jnp.int32),
-            jnp.asarray(rng.integers(0, h, n), jnp.int32),
-            jnp.asarray(rng.integers(0, w, n), jnp.int32),
-            jnp.asarray(rng.random(n) > 0.2),
-        )
-        ref = msamp.cond_sample_pdf(condT, h, *args, interpret=True)
-        old = ms.SORT_CHUNK
-        ms.SORT_CHUNK = ms.TILE
-        try:
-            chunked = msamp.cond_sample_pdf(condT, h, *args, interpret=True)
-        finally:
-            ms.SORT_CHUNK = old
-        coh = msamp.cond_sample_pdf(condT, h, *args, interpret=True,
-                                    coherent=True)
-        for a, b in zip(chunked, ref):
-            np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-7)
-        for a, b in zip(coh, ref):
-            np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-7)
+def _marginal_reference(weights, key, u):
+    """numpy float64 two-stage inversion: (y, x) position and density."""
+    w = np.maximum(weights.astype(np.float64), 0.0) + 1e-20
+    n_sl, h, wd = w.shape
+    pos = np.zeros((len(key), 2))
+    pdf = np.zeros(len(key))
+    for i, (k, (u0, u1)) in enumerate(zip(key, u)):
+        total = w[k].sum()
+        row_cdf = np.cumsum(w[k].sum(-1) / total)
+        r = min(np.searchsorted(row_cdf, u0, side="left"), h - 1)
+        lo = row_cdf[r - 1] if r else 0.0
+        dy = np.clip((u0 - lo) / (row_cdf[r] - lo), 0.0, 1.0 - 1e-7)
+        col_cdf = np.cumsum(w[k, r] / w[k, r].sum())
+        c = min(np.searchsorted(col_cdf, u1, side="left"), wd - 1)
+        lo = col_cdf[c - 1] if c else 0.0
+        dx = np.clip((u1 - lo) / (col_cdf[c] - lo), 0.0, 1.0 - 1e-7)
+        pos[i] = ((r + dy) / h, (c + dx) / wd)
+        pdf[i] = w[k, r, c] / total * h * wd
+    return pos, pdf
 
 
-def test_eval_sorted_bf16_slabs_close(rng):
-    """Opt-in bf16 HBM slabs (merl_sorted.SLAB_DTYPE): same kernel, half
-    the slab DMA, ~1e-3 relative accuracy (documented ablation knob)."""
-    from fixtures import synthetic_table
+@pytest.mark.parametrize("u_kind", ["interior", "edges"])
+def test_marginal2d_sample_matches_numpy(u_kind, rng):
+    n_sl, h, w, n = 5, 16, 32, 600
+    weights = (rng.random((n_sl, h, w)) ** 2 + 1e-4).astype(np.float32)
+    key = rng.integers(0, n_sl, n).astype(np.int32)
+    u = rng.random((n, 2)).astype(np.float32)
+    if u_kind == "edges":
+        u[0::2] = 0.0
+        u[1::2] = np.float32(1.0 - 1e-7)
+    m2d = Marginal2D.build(jnp.asarray(weights))
+    pos, pdf = m2d.sample(jnp.asarray(u), slice_=(jnp.asarray(key),))
+    pos_ref, pdf_ref = _marginal_reference(weights, key, u)
+    np.testing.assert_allclose(np.asarray(pos), pos_ref, rtol=1e-4,
+                               atol=2e-5)
+    np.testing.assert_allclose(np.asarray(pdf), pdf_ref, rtol=1e-4)
+    assert float(pos.min()) >= 0.0 and float(pos.max()) <= 1.0
 
-    table = jnp.asarray(synthetic_table())
-    n = ms.TILE
-    wi = _unit(rng, n, True)
-    wo = _unit(rng, n, True)
-    ref = np.asarray(ms.eval_sorted(table, wi, wo, interpret=True))
-    perm16 = ms.pack_perm(table[None], dtype=jnp.bfloat16)
-    got = np.asarray(
-        ms.eval_sorted(table, wi, wo, interpret=True, perm=perm16)
+
+def test_marginal2d_eval_pdf_matches_numpy(rng):
+    n_sl, h, w, n = 4, 16, 32, 800
+    weights = (rng.random((n_sl, h, w)) + 1e-3).astype(np.float32)
+    key = rng.integers(0, n_sl, n).astype(np.int32)
+    pos = rng.random((n, 2)).astype(np.float32)
+    m2d = Marginal2D.build(jnp.asarray(weights))
+    got = np.asarray(m2d.eval_pdf(jnp.asarray(pos),
+                                  slice_=(jnp.asarray(key),)))
+    r = np.minimum((pos[:, 0] * h).astype(int), h - 1)
+    c = np.minimum((pos[:, 1] * w).astype(int), w - 1)
+    wd = weights.astype(np.float64)
+    want = wd[key, r, c] / wd[key].sum(axis=(1, 2)) * h * w
+    # densities come from f32 CDF differences: absolute, not relative,
+    # rounding of about eps * (CDF scale)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Fused per-bounce tabulated shading
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+def test_bounce_shade_matches_unfused(stacked, rng):
+    """bounce_shade == {eval, pdf, sample} composed."""
+    tables = _table(rng, shape=(2, 16, 16, 32, 3), smooth=True) * 0.5 + 0.05
+    params = (tb.TabulatedBRDF.build_stack(jnp.asarray(tables)) if stacked
+              else tb.TabulatedBRDF.build(jnp.asarray(tables[0])))
+    n = 1500
+    wi = jnp.asarray(_unit(rng, n, True))
+    wo_nee = jnp.asarray(_unit(rng, n, True))
+    sample2 = jnp.asarray(rng.random((n, 2)), jnp.float32)
+    sample1 = jnp.asarray(rng.random(n), jnp.float32)
+    slot = jnp.asarray(rng.integers(0, 2 if stacked else 1, n), jnp.int32)
+    mask = jnp.asarray(rng.random(n) > 0.3)
+    f_nee, pdf_nee, wo, pdf_s, weight, _ = tb.bounce_shade(
+        params, wi, wo_nee, sample2, sample1, slot=slot, mask=mask,
+        mask_nee=mask,
     )
-    denom = np.maximum(np.abs(ref), 1e-3)
-    assert np.max(np.abs(got - ref) / denom) < 2e-2
-    assert np.mean(np.abs(got - ref) / denom) < 3e-3
+    f_ref = tb.eval(params, wi, wo_nee, slot=slot, mask=mask)
+    p_ref = tb.pdf(params, wi, wo_nee, slot=slot, mask=mask)
+    wo_ref, p_s_ref, w_ref, _ = tb.sample(
+        params, wi, sample2, sample1, slot=slot, mask=mask
+    )
+    v = np.asarray(mask)
+    for got, want, atol in ((f_nee, f_ref, 1e-7), (pdf_nee, p_ref, 1e-7),
+                            (wo, wo_ref, 1e-6), (pdf_s, p_s_ref, 1e-7),
+                            (weight, w_ref, 1e-6)):
+        np.testing.assert_allclose(np.asarray(got)[v], np.asarray(want)[v],
+                                   rtol=1e-5, atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# Row fetches: plain indexing is exact
+# ---------------------------------------------------------------------------
+
+
+def test_interaction_ids_exact_above_2048(rng):
+    """Per-lane prim / material / shape ids past 2^11 come back exact
+    (a one-hot product in TF32 would round them)."""
+    from mitsuba_customization_tpu.render import geometry as geo
+    from mitsuba_customization_tpu.render.records import Ray
+
+    p = 5000
+    p0 = rng.normal(size=(p, 3)).astype(np.float32)
+    g = geo.Geometry(
+        prim_type=jnp.zeros(p, jnp.int32),
+        p0=jnp.asarray(p0),
+        e1=jnp.asarray(np.tile([[0.1, 0, 0]], (p, 1)), jnp.float32),
+        e2=jnp.asarray(np.tile([[0, 0.1, 0]], (p, 1)), jnp.float32),
+        vn0=jnp.zeros((p, 3)), vn1=jnp.zeros((p, 3)), vn2=jnp.zeros((p, 3)),
+        uv0=jnp.zeros((p, 2)), uv1=jnp.zeros((p, 2)), uv2=jnp.zeros((p, 2)),
+        mat_id=jnp.arange(p, dtype=jnp.int32) * 3 + 1,
+        emitter_id=jnp.arange(p, dtype=jnp.int32) - 7,
+        shape_id=jnp.arange(p, dtype=jnp.int32) + (1 << 20),
+    )
+    prim = rng.integers(2048, p, 4096).astype(np.int32)
+    # rays aimed at the centre of each chosen triangle
+    target = p0[prim] + np.asarray([0.03, 0.03, 0.0], np.float32)
+    o = target - np.asarray([0, 0, 1.0], np.float32)
+    ray = Ray.make(jnp.asarray(o), jnp.tile(jnp.asarray([[0, 0, 1.0]]),
+                                             (4096, 1)))
+    si = geo.compute_interaction(
+        g, ray, jnp.ones(4096), jnp.asarray(prim), jnp.full(4096, 0.3),
+        jnp.full(4096, 0.3),
+    )
+    assert (np.asarray(si.prim) == prim).all()
+    assert (np.asarray(si.mat_id) == prim * 3 + 1).all()
+    assert (np.asarray(si.emitter) == prim - 7).all()
+
+
+def test_stacked_rows_exact(rng):
+    """Per-lane CDF rows of a wide stack equal numpy fancy indexing."""
+    weights = rng.random((3000, 40)).astype(np.float32) + 1e-3
+    dist = DiscreteDistribution.build(jnp.asarray(weights))
+    idx = rng.integers(0, 3000, 5000).astype(np.int32)
+    pmf, cdf = dist._rows((jnp.asarray(idx),))
+    assert (np.asarray(pmf) == np.asarray(dist.pmf)[idx]).all()
+    assert (np.asarray(cdf) == np.asarray(dist.cdf)[idx]).all()
+
+
+# ---------------------------------------------------------------------------
+# Platform plumbing
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("backend, n_prims, requested, expected", [
+    ("cpu", 12, None, "brute"),
+    ("cpu", 500, None, "bvh"),
+    ("gpu", 500, None, "kernel"),
+    ("gpu", 500, "bvh", "bvh"),
+])
+def test_intersector_choice(backend, n_prims, requested, expected,
+                            monkeypatch):
+    from mitsuba_customization_tpu.render import scene as scene_mod
+
+    monkeypatch.setattr(scene_mod.jax, "default_backend", lambda: backend)
+    assert scene_mod._choose_intersector(requested, n_prims) == expected
+
+
+def test_intersector_choice_rejects_unknown():
+    from mitsuba_customization_tpu.render import scene as scene_mod
+
+    with pytest.raises(ValueError, match="intersector"):
+        scene_mod._choose_intersector("cluster", 500)
+
+
+@pytest.mark.parametrize("env_set", [True, False])
+def test_compile_cache_dir(env_set, monkeypatch, tmp_path):
+    from mitsuba_customization_tpu.utils import compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        if env_set:
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+            jax.config.update("jax_compilation_cache_dir", str(tmp_path))
+            assert compile_cache.enable() == str(tmp_path)
+            assert jax.config.jax_compilation_cache_dir == str(tmp_path)
+        else:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            path = compile_cache.enable()
+            assert path == os.path.join(ROOT, ".jax_cache")
+            assert os.path.isdir(path)
+            assert jax.config.jax_compilation_cache_dir == path
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_refuses_without_gpu(where, tmp_path):
+    script = os.path.join(ROOT, "chip_smoke.py")
+    if where == "alone":
+        script = shutil.copy(script, tmp_path / "chip_smoke.py")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    proc = subprocess.run(
+        [sys.executable, str(script)], capture_output=True, text=True,
+        env=env, cwd=os.path.dirname(script), timeout=300,
+    )
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
